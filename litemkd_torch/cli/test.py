@@ -14,34 +14,16 @@ and convolutions (the bf16 trunk is unaffected).
 from __future__ import annotations
 
 import argparse
-import math
 from typing import Optional, Tuple
 
 import torch
-from torch import nn
 
 from ..config import Config
-from ..models import BatchedStudent
+from ..models import BatchedStudent, init_student_
 from ..train import run_eval
 from .common import (add_common_args, add_device_arg, add_test_args,
                      build_config, build_sampler, load_saved_config,
                      resolve_device, set_fp32_math)
-
-
-def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every weight with torch's default initialisers from
-    ``generator``: conv and linear weights and linear biases
-    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                m.weight.uniform_(-bound, bound, generator=generator)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
-                m.reset_parameters()
-    return model
 
 
 def load_student(cfg: Config, path: Optional[str] = None,

@@ -16,25 +16,26 @@ load strictly.
 
 Precision: with ``compute_dtype=torch.bfloat16`` the trunk runs under bf16
 autocast (convolutions in bf16, BatchNorm statistics in fp32); the 16-patch
-mean and fc1/fc2 run in fp32. This slice uses BatchNorm in eval mode
-(running statistics) only.
+mean and fc1/fc2 run in fp32.
+
+BatchNorm is :class:`~litemkd_torch.ops.batch_norm.BatchNorm`: in training
+its moments come from the BN-moment CUDA kernels with ``pallas_bn`` (cuDNN
+otherwise), and with ``freeze_bn`` it uses the running statistics in
+training too (``litemkd_tpu/models/backbones/resnet.py:27-33, 110-136``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from functools import partial
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.batch_norm import BatchNorm
 from ...ops.dtypes import anchor
 
 Features = Union[torch.Tensor, Dict[str, torch.Tensor]]
-
-
-def _bn(channels: int) -> nn.BatchNorm2d:
-    # flax momentum 0.9 (weight of the old value) is torch momentum 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -45,16 +46,17 @@ class BasicBlock(nn.Module):
     """torchvision's BasicBlock: conv1/bn1/conv2/bn2 and an optional
     ``downsample`` (1×1 conv, BN)."""
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 bn: Callable[[int], nn.Module] = BatchNorm):
         super().__init__()
         self.conv1 = _conv(cin, filters, 3, stride)
-        self.bn1 = _bn(filters)
+        self.bn1 = bn(filters)
         self.conv2 = _conv(filters, filters, 3)
-        self.bn2 = _bn(filters)
+        self.bn2 = bn(filters)
         self.downsample = None
         if cin != filters or stride != 1:
             self.downsample = nn.Sequential(_conv(cin, filters, 1, stride),
-                                            _bn(filters))
+                                            bn(filters))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -72,8 +74,11 @@ class ResNetTrunk(nn.Sequential):
     Children are numbered as the reference's ``nn.Sequential(*children)``:
     0 conv1, 1 bn1, 2 relu, 3 maxpool, 4-7 layer1-layer4."""
 
-    def __init__(self, depth: int = 18):
-        layers = [nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), _bn(64),
+    def __init__(self, depth: int = 18, pallas_bn: bool = False,
+                 freeze_bn: bool = False):
+        bn = partial(BatchNorm, eps=1e-5, pallas_bn=pallas_bn,
+                     freeze_bn=freeze_bn)
+        layers = [nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), bn(64),
                   nn.ReLU(), nn.MaxPool2d(3, stride=2, padding=1)]
         cin = 64
         for i, (n_blocks, filters) in enumerate(zip(_STAGES[depth],
@@ -81,7 +86,7 @@ class ResNetTrunk(nn.Sequential):
             blocks = []
             for b in range(n_blocks):
                 blocks.append(BasicBlock(cin, filters,
-                                         2 if (i > 0 and b == 0) else 1))
+                                         2 if (i > 0 and b == 0) else 1, bn))
                 cin = filters
             layers.append(nn.Sequential(*blocks))
         super().__init__(*layers)
@@ -131,11 +136,12 @@ class ResNetBackbone(nn.Module):
 
     def __init__(self, depth: int = 18, num_fc: int = 2, out_dim: int = 2048,
                  pool_hw: Tuple[int, int] = (4, 4),
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 pallas_bn: bool = False, freeze_bn: bool = False):
         super().__init__()
         if num_fc not in (1, 2):
             raise ValueError(f"num_fc must be 1 or 2, got {num_fc}")
-        self.resnet = ResNetTrunk(depth)
+        self.resnet = ResNetTrunk(depth, pallas_bn, freeze_bn)
         self.fc1 = nn.Linear(512, out_dim)
         self.fc2 = nn.Linear(512, out_dim) if num_fc == 2 else None
         self.pool_hw = pool_hw

@@ -1,6 +1,6 @@
-"""Student episode models and the selection registries
-(port of ``litemkd_tpu/models/student.py:43-68, 88-116, 144-186, 224-300``),
-limited to the entries of the ported slice.
+"""Student and teacher episode models and the selection registries
+(port of ``litemkd_tpu/models/student.py:43-68, 88-141, 144-186, 224-328``),
+limited to the entries of the ported slices.
 
 A whole batch of episodes goes through one model call: the trunk sees one
 fused (episodes × videos × frames) image batch, context and target clips
@@ -11,6 +11,7 @@ so their state dicts are the same: the reference torch key layout.
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Any, Callable, Dict
 
@@ -35,6 +36,32 @@ CLASSIFIERS: Dict[str, Any] = {
 }
 
 
+# teacher selection aliases (reference model_select.py:220-233)
+TEACHER_ALIASES: Dict[str, str] = {
+    "cos": "cos",
+    "e_dist": "e_dist",
+    "e_dist_fc2_sup": "e_dist_fc2_sup_fixed",
+    "train_teacher": "TRX",
+    "test_teacher": "TRX_fixed",
+    "train_teacher_TRX_sup": "TRX_sup",
+    "test_teacher_TRX_sup_fixed": "TRX_sup_fixed",
+    "train_teacher_TRX_2fcsup": "TRX_2fcsup",
+    "test_teacher_TRX_2fcsup_fixed": "TRX_2fcsup_fixed",
+}
+
+
+def resolve_teacher(name: str) -> str:
+    """Map a reference teacher-selection name (or a classifier name) to its
+    ``CLASSIFIERS`` key; raises for a head the port does not have."""
+    resolved = TEACHER_ALIASES.get(name, name)
+    if resolved not in CLASSIFIERS:
+        raise ValueError(
+            f"unknown teacher head {name!r}; expected one of "
+            f"{sorted(TEACHER_ALIASES)} or a classifier name "
+            f"{sorted(CLASSIFIERS)}")
+    return resolved
+
+
 def compute_dtype(cfg: Config) -> torch.dtype:
     """``cfg.model.compute_dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
     return getattr(torch, cfg.model.compute_dtype)
@@ -53,7 +80,25 @@ def make_classifier(name: str, cfg: Config) -> nn.Module:
 
 def make_backbone(name: str, cfg: Config) -> nn.Module:
     return BACKBONES[name](out_dim=cfg.model.trans_linear_in_dim,
-                           compute_dtype=compute_dtype(cfg))
+                           compute_dtype=compute_dtype(cfg),
+                           pallas_bn=cfg.model.pallas_bn,
+                           freeze_bn=cfg.model.freeze_bn)
+
+
+def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every weight with torch's default initialisers from
+    ``generator``: conv and linear weights and linear biases
+    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+                m.reset_parameters()
+    return model
 
 
 class BatchedStudent(nn.Module):
@@ -107,4 +152,32 @@ class Student(BatchedStudent):
     def forward(self, context_clips, context_labels, target_clips):
         out = super().forward(context_clips[None], context_labels[None],
                               target_clips[None])
+        return _drop_episode_axis(out)
+
+
+class BatchedTeacher(nn.Module):
+    """Teacher head over a batch of episodes of precomputed fused features:
+    context_feats (E, S, T, D), context_labels (E, S), target_feats
+    (E, Q, T, D) → ``{'logits': ...}`` with a leading E axis. Its
+    parameters are apart from the student's; the train step runs it under
+    ``torch.no_grad()``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        self.classifier = make_classifier(resolve_teacher(cfg.model.teacher),
+                                          cfg)
+
+    def forward(self, context_feats, context_labels, target_feats):
+        return {"logits": self.classifier(context_feats, context_labels,
+                                          target_feats)}
+
+
+class Teacher(BatchedTeacher):
+    """Teacher head over ONE episode: context_feats (S, T, D),
+    context_labels (S,), target_feats (Q, T, D)."""
+
+    def forward(self, context_feats, context_labels, target_feats):
+        out = super().forward(context_feats[None], context_labels[None],
+                              target_feats[None])
         return _drop_episode_axis(out)

@@ -1,5 +1,5 @@
-"""SupportDK, the support-level relation head
-(port of ``litemkd_tpu/ops/distances.py:22-42``)."""
+"""SupportDK, the support-level relation head, and the gradient-safe norm
+(port of ``litemkd_tpu/ops/distances.py:22-42, 68-73``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,3 +27,9 @@ def support_dk_logits(support: torch.Tensor, support_labels: torch.Tensor,
     dist = -(diff * diff).sum(dim=(-2, -1)) / seq_len
     idx = torch.from_numpy(_off_diag(way)).to(dist.device)
     return torch.gather(dist, 2, idx.expand(dist.shape[0], -1, -1))
+
+
+def safe_norm(x: torch.Tensor, axis=-1, keepdims: bool = False) -> torch.Tensor:
+    """``sqrt(sum(x²) + 1e-16)``: an L2 norm whose gradient is finite at
+    exactly zero (``torch.linalg.norm``'s is NaN there)."""
+    return torch.sqrt((x * x).sum(dim=axis, keepdim=keepdims) + 1e-16)

@@ -17,26 +17,23 @@ loaded with ctypes.
 :func:`tct_attention` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device, or raises: there is no
 fallback from CUDA to the plain version and no switch that forces it.
-``model.use_pallas`` has no effect on this choice. Forward only; the
-training path wraps the kernel in a ``torch.autograd.Function``.
+``model.use_pallas`` has no effect on this choice.
+
+On CUDA the kernel runs inside a ``torch.autograd.Function``, so the logits
+carry a gradient. Its backward recomputes through the plain version
+(:func:`tct_attention_backward_plain`), as the JAX package's custom VJP
+recomputes through ``tct_attention_xla`` (``pallas_tct.py:168-172``): the
+JAX package has no backward kernel for this op.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ._build import library
 from .dtypes import anchor_dtype
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tct_attention.cu"
-BUILD_DIR = _PKG / "_build"
 
 
 def tct_attention_plain(q_k, q_v, class_k, class_v, return_proto: bool = False):
@@ -59,40 +56,33 @@ def tct_attention_plain(q_k, q_v, class_k, class_v, return_proto: bool = False):
     return (-dist, proto) if return_proto else -dist
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the TCT attention "
-                           "kernel is built from source at first use")
-    return found
+def tct_attention_backward_plain(g, q_k, q_v, class_k, class_v):
+    """Gradients of ``Σ g · tct_attention_plain(q_k, q_v, class_k, class_v)``
+    with respect to the four operands, by autograd through the plain
+    version: the counterpart of ``jax.vjp(tct_attention_xla)``."""
+    with torch.enable_grad():
+        ops = [t.detach().requires_grad_(True)
+               for t in (q_k, q_v, class_k, class_v)]
+        out = tct_attention_plain(*ops)
+        return torch.autograd.grad(out, ops, g)
 
 
-def build() -> Path:
-    """Compile ``csrc/tct_attention.cu`` for sm_90a into ``_build/`` unless a
-    library built from the same source is already there; return its path."""
-    src = SOURCE.read_bytes()
-    lib = BUILD_DIR / f"tct_attention-{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a reader never sees a half-written library
-    return lib
+class _TCTAttention(torch.autograd.Function):
+    """The CUDA kernel forward; backward by plain recompute."""
+
+    @staticmethod
+    def forward(ctx, q_k, q_v, class_k, class_v):
+        ctx.save_for_backward(q_k, q_v, class_k, class_v)
+        return _launch(q_k, q_v, class_k, class_v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tct_attention_backward_plain(g, *ctx.saved_tensors)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = library("tct_attention")
     lib.tct_attention_forward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.tct_attention_forward.restype = ctypes.c_int
@@ -153,14 +143,15 @@ def tct_attention(q_k, q_v, class_k, class_v) -> torch.Tensor:
     (E, Q, W) fp32.
 
     CPU tensors go through :func:`tct_attention_plain`. CUDA tensors launch
-    the kernel (fp32 and contiguous, or this raises). Every launch adds one
-    to ``tct_attention.launches``."""
+    the kernel (fp32 and contiguous, or this raises) inside an autograd
+    Function whose backward recomputes through the plain version. Every
+    launch adds one to ``tct_attention.launches``."""
     _check(q_k, q_v, class_k, class_v)
     if q_k.device.type == "cpu":
         return tct_attention_plain(q_k, q_v, class_k, class_v)
     if q_k.device.type != "cuda":
         raise ValueError(f"tct_attention runs on cpu or cuda, not {q_k.device}")
-    return _launch(q_k, q_v, class_k, class_v)
+    return _TCTAttention.apply(q_k, q_v, class_k, class_v)
 
 
 tct_attention.launches = 0

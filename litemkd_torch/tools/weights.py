@@ -1,9 +1,11 @@
-"""Carry JAX student weights across into the reference torch key layout.
+"""Carry JAX student and teacher weights across into the reference torch
+key layout, and load a reference teacher into the port.
 
-The port's own code for what ``litemkd_tpu/tools/torch_export.py:35-215``
-does: it takes the JAX ``{"params", "batch_stats"}`` tree as numpy arrays
-(no JAX needed) and returns the state dict of a reference-layout student,
-which is also the port's ``BatchedStudent`` layout:
+The port's own code for what ``litemkd_tpu/tools/torch_export.py:35-215,
+308-322`` and ``torch_import.py:32-44, 199-217`` do: it takes the JAX
+``{"params", "batch_stats"}`` tree as numpy arrays (no JAX needed) and
+returns the state dict of a reference-layout student, which is also the
+port's ``BatchedStudent`` layout:
 
 - ``backbone.resnet.<seq>.…``: the trunk under the reference's
   ``nn.Sequential`` indices (0 conv1, 1 bn1, 4-7 layer1-layer4);
@@ -17,7 +19,7 @@ OIHW; BN scale/bias and mean/var → weight/bias and running stats
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -129,3 +131,52 @@ def student_state_dict_from_jax(variables: dict, cfg: Config
                tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
                                        int(1.5 * cfg.episode.seq_len)).items()})
     return sd
+
+
+def teacher_state_dict_from_jax(teacher_vars: dict, cfg: Config
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``Teacher``/``BatchedTeacher`` variables (a single-TCT head such
+    as TRX_2fcsup_fixed) → the released teacher layout
+    (``bracnch.transformers.0.*``, the keys ``export_teacher_checkpoint``
+    writes)."""
+    tct = teacher_vars["params"]["classifier"]["transformers"]
+    if "k_linear" not in tct:
+        raise ValueError("multi-set TCT teacher heads are not ported")
+    return {f"bracnch.transformers.0.{k}": v for k, v in
+            tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
+                                    int(1.5 * cfg.episode.seq_len)).items()}
+
+
+def _tct_prefix(sd: Dict[str, torch.Tensor]) -> Optional[str]:
+    for k in sd:
+        if k.endswith("k_linear.weight"):
+            return k[: -len(".k_linear.weight")]
+    return None
+
+
+def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pt`` file's weights: unwraps ``model_state_dict`` and
+    drops DataParallel ``module.`` segments."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "model_state_dict" in raw:
+        raw = raw["model_state_dict"]
+    return {".".join(seg for seg in k.split(".") if seg != "module"): v
+            for k, v in raw.items()}
+
+
+def teacher_state_dict_from_reference(sd: Dict[str, torch.Tensor],
+                                      teacher: torch.nn.Module
+                                      ) -> Dict[str, torch.Tensor]:
+    """A reference teacher state dict (any prefix ending in a TCT, such as
+    ``bracnch.transformers.0``) → the state dict of the port's
+    ``BatchedTeacher`` ``teacher``. Keys the file lacks (the unused
+    ``norm_v``, the ``pe.pe`` table) keep the module's values."""
+    prefix = _tct_prefix(sd)
+    if prefix is None:
+        raise KeyError("no TRX k_linear weights in the teacher state dict")
+    out = dict(teacher.state_dict())
+    for k in out:
+        src = f"{prefix}.{k[len('classifier.transformers.'):]}"
+        if k.startswith("classifier.transformers.") and src in sd:
+            out[k] = sd[src]
+    return out

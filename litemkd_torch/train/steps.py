@@ -1,14 +1,26 @@
-"""Episode batches and the eval step (port of
-``litemkd_tpu/train/steps.py:31-47, 211-230``)."""
+"""Episode batches, the train state, the distillation train step and the
+eval step (port of ``litemkd_tpu/train/steps.py:31-230``).
+
+The train step sums the named loss over the episodes of a batch, as the
+reference sums 16 per-episode losses before it steps. With ``micro_batch``
+the batch is cut into chunks that run in order at the same parameters:
+their gradients add up in ``.grad`` and each chunk's BatchNorm updates its
+running statistics in place, so the statistics chain from one chunk to the
+next as the JAX package's ``lax.scan`` carries them.
+"""
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
 
 import torch
 
 from ..config import Config
-from ..distill import merge_logits
+from ..distill import get_distiller, merge_logits
+from ..models import BatchedStudent, BatchedTeacher, init_student_
+from ..ops.positional import bind_dropout_generator
 from ..utils.metrics import per_episode_accuracy
+from .schedule import make_optimizer
 
 
 class EpisodeBatch(NamedTuple):
@@ -28,6 +40,145 @@ class EpisodeBatch(NamedTuple):
     query_labels: Any
     support_feats: Any = None
     query_feats: Any = None
+
+
+@dataclass
+class TrainState:
+    """What a training run carries from step to step (the counterpart of
+    the JAX package's ``TrainState``): the update count, the episodes seen,
+    the student and the frozen teacher, the optimizer and its schedule, and
+    the generators that draw the student's and the teacher's dropout masks."""
+
+    step: int
+    episodes_seen: int
+    model: BatchedStudent
+    teacher: BatchedTeacher
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    generator: torch.Generator
+    teacher_generator: torch.Generator
+
+
+def create_train_state(cfg: Config, device, *,
+                       student_state_dict: Optional[Dict] = None,
+                       teacher_state_dict: Optional[Dict] = None,
+                       episodes_per_step: Optional[int] = None) -> TrainState:
+    """A fresh state on ``device``. The student and the teacher get random
+    weights from ``cfg.train.seed`` (seed and seed + 1), or the given
+    reference-layout state dicts (strict). The teacher is frozen. The
+    dropout generators live on ``device``, seeded with seed + 2 and
+    seed + 3."""
+    device = torch.device(device)
+    seed = cfg.train.seed
+    model = BatchedStudent(cfg)
+    if student_state_dict is not None:
+        model.load_state_dict(student_state_dict, strict=True)
+    else:
+        init_student_(model, torch.Generator().manual_seed(seed))
+    model.to(device).train()
+    generator = torch.Generator(device=device).manual_seed(seed + 2)
+    bind_dropout_generator(model, generator)
+    teacher = BatchedTeacher(cfg)
+    if teacher_state_dict is not None:
+        teacher.load_state_dict(teacher_state_dict, strict=True)
+    else:
+        init_student_(teacher, torch.Generator().manual_seed(seed + 1))
+    teacher.requires_grad_(False).to(device).train()
+    teacher_generator = torch.Generator(device=device).manual_seed(seed + 3)
+    bind_dropout_generator(teacher, teacher_generator)
+    opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),
+                                cfg.train.learning_rate, cfg.train.sch,
+                                cfg.train.sch_gamma,
+                                episodes_per_step or cfg.train.tasks_per_batch)
+    return TrainState(step=0, episodes_seen=0, model=model, teacher=teacher,
+                      optimizer=opt, scheduler=sched, generator=generator,
+                      teacher_generator=teacher_generator)
+
+
+def _episode(x, i: int):
+    if isinstance(x, dict):
+        return {k: v[i] for k, v in x.items()}
+    return x[i]
+
+
+def _chunks(batch: EpisodeBatch, micro: int) -> Iterable[EpisodeBatch]:
+    e = batch.support_labels.shape[0]
+    if not micro or micro >= e:
+        return [batch]
+    if e % micro:
+        raise ValueError(f"micro_batch {micro} does not divide the {e} "
+                         "episodes of a batch")
+    return [EpisodeBatch(*(None if x is None else x[i:i + micro]
+                           for x in batch)) for i in range(0, e, micro)]
+
+
+def _global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+def make_train_step(cfg: Config) -> Callable:
+    """``train_step(state, batch) → metrics``: one optimizer update on a
+    batch of episodes, state updated in place. The metrics are device
+    scalars: ``task_loss`` summed over the chunks, every other metric the
+    mean of the per-chunk means; with ``cfg.train.watch`` also the global
+    and per-top-module gradient and parameter norms (over the parameters
+    the loss reaches)."""
+    distill = get_distiller(cfg.distill.name)
+    dcfg = cfg.distill
+    tpb = cfg.train.tasks_per_batch
+    micro = cfg.train.micro_batch
+    watch = cfg.train.watch
+
+    def chunk_loss(state: TrainState, chunk: EpisodeBatch):
+        out = state.model(chunk.support_clips, chunk.support_labels,
+                          chunk.query_clips)
+        s_logits = out["logits"]
+        with torch.no_grad():
+            t_logits = state.teacher(chunk.support_feats, chunk.support_labels,
+                                     chunk.query_feats)["logits"]
+        per_ep = [distill(_episode(s_logits, i), _episode(t_logits, i),
+                          chunk.query_labels[i], dcfg, tpb)
+                  for i in range(chunk.support_labels.shape[0])]
+        stacked = {k: torch.stack([p[k] for p in per_ep]) for k in per_ep[0]}
+        total = stacked["loss"].sum()
+        merged = merge_logits(cfg.distill.name, s_logits)
+        acc = per_episode_accuracy(merged, chunk.query_labels)
+        metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
+        for k, v in stacked.items():
+            if k != "loss":
+                metrics[k] = v.detach().mean()
+        return total, metrics
+
+    def train_step(state: TrainState, batch: EpisodeBatch) -> Dict[str, Any]:
+        state.model.train()
+        state.teacher.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        chunks = _chunks(batch, micro)
+        sums: Dict[str, torch.Tensor] = {}
+        for chunk in chunks:
+            loss, m = chunk_loss(state, chunk)
+            loss.backward()
+            for k, v in m.items():
+                sums[k] = sums[k] + v if k in sums else v
+        metrics = {k: (v if k == "task_loss" else v / len(chunks))
+                   for k, v in sums.items()}
+        if watch:
+            named = [(n, p) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+            metrics["grad_norm"] = _global_norm(p.grad for _, p in named)
+            metrics["param_norm"] = _global_norm(p.detach() for _, p in named)
+            for top in dict.fromkeys(n.split(".")[0] for n, _ in named):
+                sub = [p for n, p in named if n.split(".")[0] == top]
+                metrics[f"grad_norm/{top}"] = _global_norm(p.grad for p in sub)
+                metrics[f"param_norm/{top}"] = _global_norm(p.detach()
+                                                            for p in sub)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        state.episodes_seen += batch.support_labels.shape[0]
+        return metrics
+
+    return train_step
 
 
 def make_eval_step(cfg: Config) -> Callable:

@@ -131,3 +131,142 @@ def test_tct_flagship_width_matches_jax():
                  torch.from_numpy(queries)[None]).numpy()[0]
     assert got.shape == (q, way)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# TCT gradients: the plain recompute against jax.vjp(tct_attention_xla)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q,w", [(3, 3), (11, 3), (25, 3), (3, 130)])
+def test_tct_backward_plain_matches_jax_vjp(q, w):
+    e, u, dk, s = 2, 6, 32, 2
+    arrs = _tct_inputs(q + w, e, q, u, dk, w, s)
+    g = np.random.default_rng(q * w).normal(size=(e, q, w)).astype(np.float32)
+    _, vjp = jax.vjp(jax.vmap(pt.tct_attention_xla), *arrs)
+    want = vjp(jnp.asarray(g))
+    got = ta.tct_attention_backward_plain(torch.from_numpy(g), *_torch(arrs))
+    for gg, ww in zip(got, want):
+        ww = np.asarray(ww)
+        np.testing.assert_allclose(gg.numpy(), ww, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ww).max())
+
+
+def test_tct_wrapper_is_differentiable_on_cpu():
+    arrs = [a.requires_grad_(True) for a in _torch(_tct_inputs(1, 1, 3, 6, 16, 3, 2))]
+    g = torch.randn(1, 3, 3)
+    ta.tct_attention(*arrs).backward(g)
+    want = ta.tct_attention_backward_plain(g, *(a.detach() for a in arrs))
+    for a, w in zip(arrs, want):
+        torch.testing.assert_close(a.grad, w, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Training-mode BatchNorm against the JAX package (pallas_bn.py), whose
+# kernels run in interpret mode as tests/test_pallas_bn.py runs them
+# ---------------------------------------------------------------------------
+
+from litemkd_tpu.ops import pallas_bn as jbn  # noqa: E402
+from litemkd_torch.ops import batch_norm as tbn  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 7, 16), (2, 3, 2, 2048)])
+def test_batch_norm_train_matches_jax(monkeypatch, shape):
+    """y, mean and var at rtol 1e-5; the gradients of x, γ and β at 1e-4.
+    R = 210 rows of C = 16, and C = 2048 (resnet50 layer4)."""
+    monkeypatch.setattr(jbn, "_INTERPRET", True)
+    rng = np.random.default_rng(shape[-1])
+    c = shape[-1]
+    x = rng.normal(size=shape).astype(np.float32)
+    scale = rng.normal(size=c).astype(np.float32)
+    bias = rng.normal(size=c).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    (y, mean, var), vjp = jax.vjp(
+        lambda a, s, b: jbn.batch_norm_train(a, s, b, 1e-5, True), x, scale, bias)
+    dx, ds, db = vjp((jnp.asarray(g), jnp.zeros(c), jnp.zeros(c)))
+    xt, st, bt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (x.reshape(-1, c), scale, bias))
+    ty, tmean, tvar = tbn.batch_norm_train(xt, st, bt, 1e-5)
+    ty.backward(torch.from_numpy(g.reshape(-1, c)))
+    y = np.asarray(y).reshape(-1, c)
+    np.testing.assert_allclose(ty.detach().numpy(), y, rtol=1e-5,
+                               atol=1e-5 * np.abs(y).max())
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(mean), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(tvar.numpy(), np.asarray(var), rtol=1e-5)
+    for got, want in ((xt.grad, np.asarray(dx).reshape(-1, c)),
+                      (st.grad, ds), (bt.grad, db)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_bn_sums_plain_on_cpu_counts_no_launch():
+    x = torch.randn(50, 8)
+    dy = torch.randn(50, 8)
+    before = (tbn.bn_sums.launches, tbn.bn_bwd_sums.launches)
+    s = tbn.bn_sums(x)
+    b = tbn.bn_bwd_sums(dy, x, x.mean(0), torch.ones(8))
+    assert (tbn.bn_sums.launches, tbn.bn_bwd_sums.launches) == before
+    torch.testing.assert_close(s, torch.stack([x.sum(0), (x * x).sum(0)]))
+    torch.testing.assert_close(b[0], dy.sum(0))
+    with pytest.raises(ValueError):
+        tbn.bn_bwd_sums(dy[:, :4], x, x.mean(0), torch.ones(8))
+
+
+def _flax_bn(use_pallas):
+    import flax.linen as nn
+    if use_pallas:
+        return jbn.PallasBatchNorm(use_running_average=False, momentum=0.9,
+                                   epsilon=1e-5, dtype=jnp.float32,
+                                   use_pallas=True)
+    return nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                        dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("pallas_bn", [False, True])
+def test_batch_norm_module_running_stats_match_jax(monkeypatch, pallas_bn):
+    """One training update of the port's BatchNorm against PallasBatchNorm
+    and flax nn.BatchNorm from the same non-trivial running statistics: y
+    and both running statistics at rtol 1e-5. The running variance takes
+    the biased batch variance on both of the port's paths."""
+    monkeypatch.setattr(jbn, "_INTERPRET", True)
+    rng = np.random.default_rng(7)
+    n, h, w, c = 6, 4, 4, 12     # R = 96, as at the tiny preset's layer4
+    x = rng.normal(size=(n, h, w, c)).astype(np.float32) * 1.5 + 0.3
+    params = {"scale": rng.normal(size=c).astype(np.float32),
+              "bias": rng.normal(size=c).astype(np.float32)}
+    stats = {"mean": rng.normal(size=c).astype(np.float32),
+             "var": rng.uniform(0.5, 2.0, size=c).astype(np.float32)}
+    m = tbn.BatchNorm(c, pallas_bn=pallas_bn).train()
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(params["scale"]))
+        m.bias.copy_(torch.from_numpy(params["bias"]))
+        m.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        m.running_var.copy_(torch.from_numpy(stats["var"]))
+    y = m(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    for use_pallas in (False, True):
+        want_y, mut = _flax_bn(use_pallas).apply(
+            {"params": params, "batch_stats": stats}, x,
+            mutable=["batch_stats"])
+        want_y = np.asarray(want_y)
+        np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want_y).max())
+        np.testing.assert_allclose(m.running_mean.numpy(),
+                                   np.asarray(mut["batch_stats"]["mean"]),
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(m.running_var.numpy(),
+                                   np.asarray(mut["batch_stats"]["var"]),
+                                   rtol=1e-5)
+
+
+def test_batch_norm_freeze_and_layout():
+    m = tbn.BatchNorm(8, freeze_bn=True).train()
+    with torch.no_grad():
+        m.running_mean.uniform_(-1, 1)
+    before = m.running_mean.clone()
+    x = torch.randn(2, 4, 4, 8).permute(0, 3, 1, 2)
+    y = m(x)
+    torch.testing.assert_close(y, m.eval()(x))
+    assert torch.equal(m.running_mean, before)
+    with pytest.raises(ValueError, match="channels-last"):
+        tbn.BatchNorm(8, pallas_bn=True).train()(torch.randn(2, 8, 4, 4))
