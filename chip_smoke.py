@@ -8,9 +8,12 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 2. build: compile every kernel of the port from ``litemkd_torch/csrc/``,
    one nvcc process per source, all at once;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the main paths' shapes and at ragged ones, and time the kernel, the
-   plain version and one library call computing the same function, beside
-   the bound; the TCT kernel's autograd Function against autograd through
+   at the main paths' shapes and at ragged ones, a second launch bitwise
+   equal to the first, and time the kernel, the plain version and one
+   library call computing the same function, beside the bound; for the TCT
+   kernel also each group size G at both main-path shapes, dk % 4 != 0,
+   U = 56 and operands one float off 16-byte alignment (its 4-byte
+   copies); the TCT kernel's autograd Function against autograd through
    the plain version at the training shape; then the eval slice and one
    train step at tiny width in fp32 on the card against the same weights
    and episodes on the CPU, the reference that the CPU tests hold equal to
@@ -58,11 +61,14 @@ from litemkd_torch.train.loop import to_device
 from litemkd_torch.utils.metrics import per_episode_accuracy
 
 FP32_PEAK = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
+TF32_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s in the tensor cores
 HBM_RATE = 3.35e12    # H100 SXM HBM3 bytes/s
 EVAL = dict(e=8, q=5, u=28, dk=1152, w=5, s=5)    # main path: 8-episode eval chunk
 TRAIN = dict(e=4, q=25, u=28, dk=1152, w=5, s=5)  # training micro-batch of 4
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
-          dict(e=3, q=11, u=28, dk=100, w=7, s=3)]
+          dict(e=3, q=11, u=28, dk=100, w=7, s=3),
+          dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
+          dict(e=1, q=3, u=56, dk=1152, w=5, s=5)]   # U=56 (temp set 3)
 N_TASKS = 16
 # noise 1.0 keeps accuracy off 100% (at the default 0.3 every episode of the
 # random-weight student scores 1.0), so equal accuracies say something
@@ -102,6 +108,24 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one ``fn()``: the summed durations of the device
+    activities (kernels, copies) that torch.profiler records over ``iters``
+    calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out the gaps
+    in which the card waits for the host to launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / iters
+
+
 def tct_inputs(shape, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     e, q, u, dk, w, s = (shape[k] for k in ("e", "q", "u", "dk", "w", "s"))
@@ -123,38 +147,163 @@ def tct_library(q_k, q_v, class_k, class_v):
 
 
 def tct_bound(shape):
+    """Least time for the fp32-accurate function on this card: the inputs
+    read once and the output written once against the two products in
+    split TF32 (three TF32 products each) on the tensor cores. Also returns
+    the earlier bound, the products in fp32 outside the tensor cores."""
     e, q, u, dk, w, s = (shape[k] for k in ("e", "q", "u", "dk", "w", "s"))
     flops = 4 * e * w * (q * u) * (s * u) * dk        # two products, 2 flop per FMA
     nbytes = 4 * (2 * e * q * u * dk + 2 * e * w * s * u * dk + e * q * w)
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = 3 * flops / TF32_PEAK, nbytes / HBM_RATE
+    fp32_ms = 1e3 * max(flops / FP32_PEAK, t_bytes)
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", fp32_ms)
 
 
-def check_kernel(shape, seed):
-    args = tct_inputs(shape, seed)
-    got = ta.tct_attention(*args)
+def tct_launch(args, group):
+    """The kernel at the wrapper's group size, or at ``group`` through the
+    private launch (both count a launch)."""
+    return ta.tct_attention(*args) if group is None else ta._launch(*args, group=group)
+
+
+def check_kernel(shape, seed, group=None, args=None):
+    """The kernel against its plain version within 1e-4·max|plain|, and a
+    second launch bitwise equal to the first."""
+    args = tct_inputs(shape, seed) if args is None else args
+    got = tct_launch(args, group)
+    again = tct_launch(args, group)
     torch.cuda.synchronize()
     want = ta.tct_attention_plain(*args)
     err = (got - want).abs().max().item()
     tol = 1e-4 * want.abs().max().item()
-    log(f"[kernel] tct_attention {shape}: max_abs_err={err:.3e} tol={tol:.3e}")
+    log(f"[kernel] tct_attention {shape} G={group or 'auto'}: max_abs_err={err:.3e} "
+        f"tol={tol:.3e}")
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"tct_attention disagrees with its plain version "
-                             f"at {shape}: {err} > {tol}")
+                             f"at {shape}, G={group}: {err} > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"tct_attention is not deterministic at {shape}")
     return args, err
 
 
 def time_kernel(shape, args):
-    kernel_ms = cuda_ms(lambda: ta.tct_attention(*args), 50)
-    plain_ms = cuda_ms(lambda: ta.tct_attention_plain(*args), 10)
-    library_ms = cuda_ms(lambda: tct_library(*args), 20)
+    """The kernel, the plain version and the library call at one shape:
+    CUDA-event times of back-to-back calls (the numbers of the kernels
+    line, as in earlier runs) and device times (``device_ms``, without the
+    host's launch gaps), beside both bounds."""
+    fns = dict(kernel=lambda: ta.tct_attention(*args),
+               plain=lambda: ta.tct_attention_plain(*args),
+               library=lambda: tct_library(*args))
+    events = {k: cuda_ms(f, 20) for k, f in fns.items()}
+    device = {k: device_ms(f) for k, f in fns.items()}
     lib_err = (tct_library(*args) - ta.tct_attention_plain(*args)).abs().max().item()
-    bound_ms, bound_by = tct_bound(shape)
-    log(f"[kernel] tct_attention {shape}: kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}) library_max_abs_err={lib_err:.3e}")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by, fp32_ms = tct_bound(shape)
+    for label, t in (("CUDA events", events), ("device time", device)):
+        log(f"[kernel] tct_attention {shape} {label}: kernel_ms={t['kernel']:.4f} "
+            f"plain_ms={t['plain']:.4f} library_ms={t['library']:.4f}; "
+            f"bound_ms={bound_ms:.4f} ({bound_by}, split TF32; kernel at "
+            f"{100 * bound_ms / t['kernel']:.1f}% of it) fp32_bound_ms={fp32_ms:.4f} "
+            f"(kernel at {100 * fp32_ms / t['kernel']:.1f}% of it)")
+    log(f"[kernel] tct_attention {shape}: library_max_abs_err={lib_err:.3e}")
+    return dict(ms=events["kernel"], plain_ms=events["plain"],
+                library_ms=events["library"], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def tct_phase():
+    """The TCT kernel at both main-path shapes (checked, deterministic,
+    timed), the group-size sweep there, the ragged shapes, and misaligned
+    operands. Returns the eval shape's error and times."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1)):
+        args, err = check_kernel(shape, seed)
+        times[name] = time_kernel(shape, args)
+        auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
+        sweep = []
+        for g in ta.GROUPS:
+            check_kernel(shape, seed, group=g, args=args)
+            sweep.append(f"G={g} {device_ms(lambda: tct_launch(args, g)):.4f} ms")
+        log(f"[kernel] tct_attention {name} group sweep, device time ({n_sm} SMs, "
+            f"wrapper picks G={auto}): " + ", ".join(sweep))
+        if name == "eval":
+            err_eval = err
+            shifted = []
+            for a in args:     # one float into a larger buffer: not 16-byte aligned
+                buf = torch.empty(a.numel() + 1, device="cuda")
+                shifted.append(buf[1:].view(a.shape).copy_(a))
+            check_kernel(shape, seed, args=shifted)
+            log(f"[kernel] tct_attention eval, operands misaligned by one float "
+                f"(4-byte copies): device kernel_ms="
+                f"{device_ms(lambda: ta.tct_attention(*shifted)):.4f}")
+            del shifted
+        del args
+    for i, shape in enumerate(RAGGED):
+        check_kernel(shape, 2 + i)
+    return err_eval, times["eval"]
+
+
+# Variants of csrc/tct_attention.cu, each a list of (text, replacement) edits
+# of its source: the split with lo rounded to nearest as well (what
+# cvt.rna.tf32.f32 on both parts gives), and two that give wrong results on
+# purpose to show where the time goes (only the hi·hi product of the
+# three; no split arithmetic).
+_LO = "  lo = __float_as_uint(x - __uint_as_float(hi));"
+_SPLIT = "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n" + _LO
+TCT_VARIANTS = {
+    "kernel": [],
+    "lo_rounded": [(_LO, "  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u)"
+                         " & 0xffffe000u;")],
+    "hi_hi_only": [(f"for (int j = 0; j < TN; ++j) mma_tf32(acc[j], {a}, {b}[j][0], {b}[j][1]);",
+                    "for (int j = 0; j < TN; ++j) {}") for a, b in (("al", "bh"), ("ah", "bl"))],
+    "no_split": [(_SPLIT, "  hi = lo = __float_as_uint(x);")],
+}
+
+
+def tct_variants(out_dir=Path(__file__).resolve().parent / "litemkd_torch" / "_build"):
+    """Build every TCT_VARIANTS entry (one nvcc each, in parallel) and print
+    the device time of each at both main-path shapes, twice in turns, with
+    its largest error relative to max|plain|. Not part of main()."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    base = (_build.CSRC / "tct_attention.cu").read_text()
+
+    def build(item):
+        name, edits = item
+        src = base
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise ValueError(f"variant {name}: {old!r} is not in the source once")
+            src = src.replace(old, new)
+        cu, so = out_dir / f"variant_{name}.cu", out_dir / f"variant_{name}.so"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu.write_text(src)
+        subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                        str(so), str(cu)], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        lib.tct_attention_forward.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        return name, lib
+
+    with ThreadPoolExecutor(len(TCT_VARIANTS)) as pool:
+        libs = dict(pool.map(build, TCT_VARIANTS.items()))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, shape in (("eval", EVAL), ("train", TRAIN)):
+        args = tct_inputs(shape, 0)
+        e, q, u, dk, w, s = (shape[k] for k in ("e", "q", "u", "dk", "w", "s"))
+        g = ta.group_size(e, q, w, n_sm)
+        want = ta.tct_attention_plain(*args)
+        stream = torch.cuda.current_stream().cuda_stream
+        row = []
+        for _ in range(2):
+            for name, lib in libs.items():
+                out = torch.empty(e, q, w, device="cuda")
+                ms = device_ms(lambda: lib.tct_attention_forward(
+                    *(a.data_ptr() for a in args), out.data_ptr(), e, q, w, s, u, dk,
+                    g, 1, stream))
+                rel = ((out - want).abs().max() / want.abs().max()).item()
+                row.append(f"{name}={ms:.4f} ms (rel err {rel:.1e})")
+        log(f"[variants] tct_attention {label} G={g}, device time: " + ", ".join(row))
 
 
 def one_chunk_check(cfg, device):
@@ -624,13 +773,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions, then the tiny slices
-    args, err_eval = check_kernel(EVAL, 0)
-    eval_times = time_kernel(EVAL, args)
-    train_args, _ = check_kernel(TRAIN, 1)
-    time_kernel(TRAIN, train_args)
-    del args, train_args
-    for i, shape in enumerate(RAGGED):
-        check_kernel(shape, 2 + i)
+    err_eval, eval_times = tct_phase()
     tct_grad_check(TRAIN, 5)
     tct_grad_check(RAGGED[0], 6)
     bn_times, bn_err = bn_phase()

@@ -1,6 +1,7 @@
-// Fused TRX cross-attention core for Hopper (sm_90a), fp32 throughout.
+// Fused TRX cross-attention core for Hopper (sm_90a), on the tensor cores in
+// split TF32 ("3xTF32"), fp32-accurate.
 //
-// Replaces the Pallas kernel `_kernel` of litemkd_tpu/ops/pallas_tct.py
+// Replaces the Pallas kernel `_kernel` of litemkd_tpu/ops/pallas_tct.py:61
 // (launched by `tct_attention_pallas`). For every episode e, query q and
 // class w it computes
 //
@@ -9,93 +10,157 @@
 //     proto  = attn · class_v[e,w]                    (U, dk)
 //     out[e,q,w] = -Σ_u ‖q_v[e,q,u] - proto[u]‖² / U
 //
-// The (U, S·U) attention tile and the (U, dk) prototype tile live in shared
-// memory and registers only: neither reaches device memory, which is the
-// point of the kernel (the plain version materialises both for every
-// (e, q, w)). The TPU kernel's 128-lane output padding and its n_way <= 128
-// limit are gone: the output is written unpadded, one float per block.
+// The attention tile and the prototypes live in shared memory and registers
+// only; neither reaches device memory. The TPU kernel's 128-lane output
+// padding and its n_way <= 128 limit are gone.
 //
-// What bounds it. Per (e, q, w) it does 2·(U·S·U·dk) multiply-adds and reads
-// 2·U·dk + 2·S·U·dk floats, most of them shared with other blocks through
-// L2; at the flagship shape (U=28, S=5, dk=1152) that is about 19 flop per
-// byte of its unique inputs, so without tensor cores (fp32, no TF32) it is
-// bound by the fp32 FMA rate, not by the 3.35 TB/s of HBM. The design keeps
-// the FMA units fed: shared-memory operands are read as float4 with one
-// side broadcast across the warp, and every global load is an asynchronous
-// copy (cp.async) issued one slice ahead of the arithmetic that needs it.
+// What bounds it. Both products are fp32 and must stay fp32-accurate (the
+// port turns TF32 off everywhere and its reference is fp32). Split TF32 keeps
+// that accuracy on the tensor cores: each operand x is hi = tf32(x), rounded
+// to nearest, plus lo = x - hi, which the tensor core reads truncated to
+// TF32; each product accumulates lo·hi + hi·lo + hi·hi in fp32, three TF32
+// products for one fp32 product (the error of one is ~2^-21 of |x|·|y|,
+// against ~2^-11 for a single TF32 pass). At the training shape (E=4, Q=25,
+// W=5, S=5, U=28, dk=1152) the two products are 9.03 GFLOP, 27.1 GFLOP of
+// TF32, 0.055 ms at the H100's 494.7 TFLOP/s dense TF32; the unique inputs
+// are 51.6 MB, 0.015 ms at 3.35 TB/s. So the kernel is bound by tensor-core
+// operations, about 525 TF32 operations per unique byte. Warp-level mma.sync
+// reaches only part of that rate (wgmma is the rest of the way), and the
+// splits and operand loads compete with it for issue slots, so the design
+// keeps both per product low.
 //
 // Design.
-// - One block of 256 threads per (e, q, w) cell. At eval (E=8, Q=5, W=5)
-//   that is 200 blocks for 132 SMs, each ~9 M FMAs; a cell per block keeps
-//   the per-query distance sum inside one block, so the result is
-//   deterministic (no atomics) and needs no second pass.
-// - Phase 1 streams dk in slices of 32 through two shared-memory stages:
-//   the query's U rows and the class's S·U key rows, stored k-major. Each
-//   thread owns up to MAXT 4×4 score tiles and keeps them in registers over
-//   the whole dk loop; the score tile is written to shared memory once.
-// - Phase 2: one warp per row, max / exp / sum softmax in place.
-// - Phase 3 streams the value columns in slices of DC (64, or 32/16 when
-//   the rows are many) through two stages; the first slice is in flight
-//   during the softmax. The key axis is split between the two halves of
-//   the block, so every thread owns one 4×4 prototype tile over half the
-//   keys; half 0 adds half 1's partial tile, subtracts the sum from q_v and
-//   folds the squared difference into a per-(row, column group) partial,
-//   summed in a fixed order at the end.
-// - Every edge is masked: U and S·U are padded to multiples of 4 with zeros
-//   (cp.async zero-fills what lies outside the tensors), and dk need not be
-//   a multiple of anything.
-// Shared memory at the flagship shape is ~97 KB, so two blocks share an SM.
-// With one block of 8 warps per SM the kernel waits on latency more than on
-// any unit, so slices stay narrow enough for two (timings in PERF.md).
+// - One block of 8 warps per (episode e, group of G consecutive queries,
+//   class w). The group's G·U query rows are stacked into M rows, padded with
+//   zeros to a multiple of 16; the class's S·U keys are padded to a multiple
+//   of 8 and the padded keys get attention weight exactly 0. A class tile is
+//   read from L2 once per group instead of once per query. G comes from the
+//   wrapper (ops/tct_attention.py `group_size`); a tail group masks the
+//   queries it lacks, skips their all-zero row tiles and writes nothing for
+//   them.
+// - Both products run as mma.sync.m16n8k8 .tf32 (warp level), fed from
+//   padded shared memory by plain loads, so any operand layout works (the
+//   proto product's B operand, class_v, is MN-major). Within each k-step of
+//   8, lane t takes the physical columns 2t and 2t+1 as its two k indices for
+//   both operands (a product contracts over k, so any common order of k is
+//   the same product): a row-major operand's fragment pair is one 8-byte load.
+//   Row strides make every fragment load free of bank conflicts.
+// - Phase 1 (scores, M × S·U): dk streams in slices of 32 through two stages.
+//   Warps form a WM × WN grid; each owns one 16-row band and TN n8 tiles,
+//   whose accumulators stay in registers over the whole dk loop. Shapes whose
+//   tiles exceed one such pass take more passes over dk.
+// - Phase 2: one warp per row, max / exp / sum softmax in place, in fp32.
+// - Phase 3 (proto, M × DC per slice of DC value columns): each 16-row band
+//   is split into KS key halves × WN3 column groups of TN3 n8 tiles, so each
+//   attention fragment a warp splits serves TN3 tiles; half 1 hands its
+//   partial protos to half 0 through shared memory. The epilogue subtracts
+//   the proto from q_v, squares and reduces in a fixed order: a thread's own
+//   fragments, the quad by shuffles, then per-(row, column group) partials in
+//   shared memory; the last step sums each query's U rows. No atomics: two
+//   runs are bitwise equal.
+// - Within a k-step the products go term by term over all of a warp's tiles,
+//   so independent products separate two on the same accumulator.
+// - Every copy is cp.async issued one slice ahead of the products that need
+//   it: 16 bytes when dk % 4 == 0 and every operand is 16-byte aligned (the
+//   wrapper checks), else 4 bytes, in the same kernel. Out-of-range rows and
+//   columns are zero-filled by the copy's src-size operand.
+// Shared memory, registers and the G sweep at the flagship shape are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 32;                    // dk depth of one score slice (phase 1)
+constexpr int kLgKC = 5;                   // log2(kKC)
+constexpr int kLd1 = kKC + 8;              // phase-1 stage row stride (≡ 8 mod 32)
 constexpr size_t kMaxSmem = 232448;        // dynamic shared memory per block on sm_90
-constexpr int kMaxTiles = 4 * kThreads;    // phase-1 4×4 tiles: at most 4 per thread
-constexpr int kRedFloats = 16 * (kThreads / 2);  // one 4×4 tile per thread of a half
+constexpr size_t kTwoBlocks = 115712;      // per block, for two blocks an SM (228 KB)
 
 struct Dims {
   int E, Q, W, S, U, dk;
-  int SU;    // S·U keys per class
-  int Up;    // U rounded up to a multiple of 4
-  int SUp;   // S·U rounded up to a multiple of 4
-  int DC;    // value columns per phase-3 slice: 64, 32 or 16
-  int lgDC;  // log2(DC), so slice indexing shifts instead of dividing
+  int SU;              // S·U keys per class
+  int G, NG;           // queries per group, groups per episode
+  int Mp, MT;          // G·U rows padded to 16, m16 tiles
+  int Np, NT;          // S·U keys padded to 8, n8 tiles
+  int ldS;             // score row stride: Np rounded up to 16, + 8
+  int WM, WN, tn;      // phase 1: warp grid (WM 16-row bands), n8 tiles a warp (TN)
+  int KS, WN3;         // phase 3: key halves and column groups a band
+  int tn3, DC, lgDC;   // phase 3: n8 tiles a warp (TN3), columns per slice
+  int vec;             // 1: 16-byte copies, 0: 4-byte copies
 };
 
-inline int round4(int x) { return (x + 3) & ~3; }
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// scores + distance partials + half 1's prototype tiles + the larger of the
-// two double-buffered stages
-size_t smem_floats(int Up, int SUp, int DC) {
-  const size_t stage1 = 2 * (size_t)kKC * (Up + SUp);
-  const size_t stage3 = 2 * (size_t)SUp * DC;
-  return (size_t)SUp * Up + (size_t)Up * (DC / 4) + kRedFloats +
+// phase-3 partial protos of the second key half: one n8 tile of every lane
+// of every (band, column group), TN3 tiles each
+size_t red_floats(const Dims& d) {
+  return d.KS == 2 ? (size_t)(d.WM * d.WN3) * d.tn3 * 32 * 4 : 0;
+}
+
+size_t smem_floats(const Dims& d) {
+  const size_t stage1 = 2 * (size_t)kLd1 * (d.WM * 16 + d.WN * d.tn * 8);
+  const size_t stage3 = 2 * (size_t)d.Np * (d.DC + 4) + red_floats(d);
+  return (size_t)d.Mp * d.ldS + (size_t)d.Mp * d.WN3 +
          (stage1 > stage3 ? stage1 : stage3);
 }
 
-// The widest value slice (at most 64 columns, so that two blocks share an SM
-// at the flagship shape) whose prototype tiles fit one half of the block and
-// whose stages fit shared memory; 0 when none does.
-int pick_dc(int Up, int SUp) {
-  for (int dc = 64; dc >= 16; dc /= 2)
-    if ((Up / 4) * (dc / 4) <= kThreads / 2 &&
-        smem_floats(Up, SUp, dc) * sizeof(float) <= kMaxSmem)
-      return dc;
-  return 0;
+// Tiling for S shots of U tuples in groups of G queries. Phase 1: WM × WN
+// warps, each one 16-row band and TN n8 score tiles (one of kTNs). Phase 3:
+// the same WM bands, each split into KS key halves × WN3 column groups of TN3
+// n8 proto tiles (1, 2 or 4); a slice is DC = 8·WN3·TN3 value columns. Tile
+// counts are compile-time, so the tile loops carry no guards. Prefers one
+// phase-1 pass and two blocks an SM, then one pass, then fewer tiles a pass;
+// returns false when no tiling fits shared memory.
+constexpr int kTNs[] = {2, 5, 9, 18};
+
+bool plan(int S, int U, int G, Dims& d) {
+  if (S <= 0 || U <= 0 || G <= 0) return false;
+  d.S = S; d.U = U; d.G = G; d.SU = S * U;
+  d.Mp = round_up(G * U, 16); d.MT = d.Mp / 16;
+  d.Np = round_up(d.SU, 8); d.NT = d.Np / 8;
+  d.ldS = round_up(d.Np, 16) + 8;
+  d.WM = 1;
+  while (d.WM < d.MT && d.WM < kWarps) d.WM *= 2;
+  d.WN = kWarps / d.WM;
+  d.KS = d.WM <= kWarps / 2 ? 2 : 1;
+  d.WN3 = kWarps / (d.WM * d.KS);
+  const int tn_full = cdiv(d.NT, d.WN);
+  int first = 3;
+  while (first > 0 && kTNs[first - 1] >= tn_full) --first;
+  for (int pass = 0; pass < 2; ++pass) {
+    const size_t budget = pass == 0 ? kTwoBlocks : kMaxSmem;
+    for (int i = first; i >= 0; --i) {
+      for (int tn3 = 4; tn3 >= 1; tn3 /= 2) {
+        const int dc = 8 * d.WN3 * tn3;
+        if (dc > 64) continue;
+        d.tn = kTNs[i]; d.DC = dc; d.tn3 = tn3;
+        d.lgDC = dc == 64 ? 6 : dc == 32 ? 5 : dc == 16 ? 4 : 3;
+        if (smem_floats(d) * sizeof(float) <= budget) return true;
+      }
+      if (pass == 0) break;                   // two blocks only at one pass
+    }
+  }
+  return false;
 }
 
-// 4-byte asynchronous global → shared copy; zero-fills when !valid.
+// ---- asynchronous copies ----
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -104,268 +169,363 @@ __device__ __forceinline__ void cp_async_wait_one() {   // all but the newest gr
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
+// rows × (1 << lgw) floats from row-major global rows of dk floats, starting
+// at column c0, into shared rows of stride ld. Rows >= valid and columns >= dk
+// are zero-filled; `safe` is a valid address for the copies that read nothing.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          const float* safe, int rows, int valid,
+                                          int lgw, int c0, int dk, int vec) {
+  if (vec) {                                  // 16 bytes: dk % 4 == 0, aligned
+    const int lgc = lgw - 2;
+    for (int i = threadIdx.x; i < rows << lgc; i += kThreads) {
+      const int r = i >> lgc, c = (i & ((1 << lgc) - 1)) * 4;
+      const bool ok = r < valid && c0 + c < dk;
+      cp_async16(dst + r * ld + c, ok ? src + (size_t)r * dk + c0 + c : safe, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows << lgw; i += kThreads) {
+      const int r = i >> lgw, c = i & ((1 << lgw) - 1);
+      const bool ok = r < valid && c0 + c < dk;
+      cp_async4(dst + r * ld + c, ok ? src + (size_t)r * dk + c0 + c : safe, ok);
+    }
+  }
+}
+
+// ---- split TF32 on the tensor cores ----
+
+// hi: x rounded to TF32, to nearest with ties away from zero (what
+// cvt.rna.tf32.f32 gives for every finite x), in two integer instructions:
+// add half of the 13 dropped bits to the bit pattern, then clear them.
+// lo: x - hi, exact in fp32; the tensor core reads its top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split2(float2 x, uint32_t& h0, uint32_t& l0, uint32_t& h1,
+                                       uint32_t& l1) {
+  split(x.x, h0, l0);
+  split(x.y, h1, l1);
+}
+
+// c += a · b, one m16n8k8 TF32 product with fp32 accumulation (the asm of
+// CUTLASS's SM80_16x8x8_F32TF32TF32F32_TN).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp: acc[j] += A(16 rows, 8·ksteps) · B(8·ksteps, n8 tile j) for all
+// TN tiles, in split TF32, small terms first. A is row-major with stride lda
+// (even), at the warp's band and first k. B's element (k, n) is at
+// B[n·ldb + k] when B_KROWS (k contiguous, as A) and at B[k·ldb + n]
+// otherwise, at the warp's first tile and first k. Lane (g, t) takes the
+// physical k columns 2t and 2t+1 of each k-step for the fragment's k = t and
+// t + 4. The products go term by term over the tiles (every lo·hi, then every
+// hi·lo, then every hi·hi); the volatile mma asm keeps that order.
+template <int TN, bool B_KROWS>
+__device__ __forceinline__ void warp_mma(float (&acc)[TN][4], const float* A, int lda,
+                                         const float* B, int ldb, int ksteps) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a_p = A + g * lda + 2 * t;
+  const float* b_p = B_KROWS ? B + g * ldb + 2 * t : B + 2 * t * ldb + g;
+#pragma unroll 4
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k = ks * 8;
+    uint32_t ah[4], al[4], bh[TN][2], bl[TN][2];
+    split2(*reinterpret_cast<const float2*>(a_p + k), ah[0], al[0], ah[2], al[2]);
+    split2(*reinterpret_cast<const float2*>(a_p + 8 * lda + k), ah[1], al[1], ah[3], al[3]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < TN; ++j) {
+      if (B_KROWS) {
+        const float2 b = *reinterpret_cast<const float2*>(b_p + j * 8 * ldb + k);
+        split2(b, bh[j][0], bl[j][0], bh[j][1], bl[j][1]);
+      } else {
+        const float* b = b_p + k * ldb + j * 8;
+        split(b[0], bh[j][0], bl[j][0]);
+        split(b[ldb], bh[j][1], bl[j][1]);
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
-
-// Phase-1 slice k0: rows of A (U × dk) and B (S·U × dk) into k-major stages.
-__device__ __forceinline__ void load_scores_slice(float* As, float* Bs, const float* qk_p,
-                                                  const float* ck_p, const Dims& d, int k0) {
-  for (int i = threadIdx.x; i < kKC * d.Up; i += kThreads) {
-    const int r = i / kKC, k = i % kKC;   // neighbouring threads read along k
-    const bool ok = r < d.U && k0 + k < d.dk;
-    cp_async4(As + k * d.Up + r, ok ? qk_p + (size_t)r * d.dk + k0 + k : qk_p, ok);
-  }
-  for (int i = threadIdx.x; i < kKC * d.SUp; i += kThreads) {
-    const int r = i / kKC, k = i % kKC;
-    const bool ok = r < d.SU && k0 + k < d.dk;
-    cp_async4(Bs + k * d.SUp + r, ok ? ck_p + (size_t)r * d.dk + k0 + k : ck_p, ok);
+    for (int j = 0; j < TN; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
   }
 }
 
-// Phase-3 slice d0: value columns [d0, d0 + DC) of all S·U keys, row-major.
-__device__ __forceinline__ void load_values_slice(float* Vs, const float* cv_p,
-                                                  const Dims& d, int d0) {
-  for (int i = threadIdx.x; i < d.SUp * d.DC; i += kThreads) {
-    const int j = i >> d.lgDC, c = i & (d.DC - 1);
-    const bool ok = j < d.SU && d0 + c < d.dk;
-    cp_async4(Vs + i, ok ? cv_p + (size_t)j * d.dk + d0 + c : cv_p, ok);
-  }
-}
-
-template <int MAXT>
-__global__ void __launch_bounds__(kThreads)
+template <int TN, int TN3>
+__global__ void __launch_bounds__(kThreads, TN <= 9 ? 2 : 1)
 tct_attention_kernel(const float* __restrict__ qk, const float* __restrict__ qv,
                      const float* __restrict__ ck, const float* __restrict__ cv,
                      float* __restrict__ out, const Dims d, const float sqrt_dk) {
   extern __shared__ __align__(16) float smem[];
-  const int Up = d.Up, SUp = d.SUp, G = d.DC / 4;
-  float* st = smem;                           // scores, then attention: [SUp][Up]
-  float* part = st + (size_t)SUp * Up;        // squared distance per (row, group): [Up][G]
-  float4* red = reinterpret_cast<float4*>(part + (size_t)Up * G);  // [4][tiles3] partial protos
-  float* work = part + (size_t)Up * G + kRedFloats;  // two stages of phase 1 or 3
+  float* st = smem;                                 // scores, then attention: [Mp][ldS]
+  float* part = st + (size_t)d.Mp * d.ldS;          // squared distance: [Mp][WN3]
+  float* work = part + (size_t)d.Mp * d.WN3;        // two stages of phase 1 or 3
 
-  const int cell = blockIdx.x;                // ((e·Q + q)·W + w): w fastest
-  const int w = cell % d.W;
-  const int eq = cell / d.W;                  // e·Q + q
-  const int e = eq / d.Q;
-  const int tid = threadIdx.x;
+  const int w = blockIdx.x % d.W;
+  const int eg = blockIdx.x / d.W;                  // e·NG + group
+  const int e = eg / d.NG, q0 = (eg % d.NG) * d.G;
+  const int nq = min(d.G, d.Q - q0);                // queries in this group
+  const int rows = nq * d.U;                        // valid query rows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / d.WN, wn = warp % d.WN;
 
-  const float* qk_p = qk + (size_t)eq * d.U * d.dk;
-  const float* qv_p = qv + (size_t)eq * d.U * d.dk;
+  const size_t q_row0 = ((size_t)e * d.Q + q0) * d.U;
+  const float* qk_p = qk + q_row0 * d.dk;
+  const float* qv_p = qv + q_row0 * d.dk;
   const float* ck_p = ck + ((size_t)e * d.W + w) * d.SU * d.dk;
   const float* cv_p = cv + ((size_t)e * d.W + w) * d.SU * d.dk;
 
-  for (int i = tid; i < Up * G; i += kThreads) part[i] = 0.f;
+  for (int i = tid; i < d.Mp * d.WN3; i += kThreads) part[i] = 0.f;
 
-  // ---- phase 1: scores[j][u] = Σ_k q_k[u][k] · k[j][k], in registers ----
-  const int stage1 = kKC * (Up + SUp);
-  const int n_cg = SUp / 4;
-  const int tiles = (Up / 4) * n_cg;
-  float acc[MAXT][4][4];
-#pragma unroll
-  for (int tt = 0; tt < MAXT; ++tt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[tt][i][j] = 0.f;
-
+  // ---- phase 1: scores = q_k · class_k^T over dk, in registers ----
+  const int rows_a = d.WM * 16, cols_b = d.WN * TN * 8;
+  const int stage1 = kLd1 * (rows_a + cols_b);
   const int n_k = (d.dk + kKC - 1) / kKC;
-  load_scores_slice(work, work + kKC * Up, qk_p, ck_p, d, 0);
-  cp_async_commit();
-  for (int s = 0; s < n_k; ++s) {
-    if (s + 1 < n_k) {
-      float* nxt = work + ((s + 1) & 1) * stage1;
-      load_scores_slice(nxt, nxt + kKC * Up, qk_p, ck_p, d, (s + 1) * kKC);
-    }
-    cp_async_commit();                        // possibly empty: keeps the count uniform
-    cp_async_wait_one();
-    __syncthreads();                          // slice s landed for every thread
-    const float* As = work + (s & 1) * stage1;
-    const float* Bs = As + kKC * Up;
+  for (int m0 = 0; m0 < d.Mp; m0 += rows_a) {
+    for (int n0 = 0; n0 < d.Np; n0 += cols_b) {
+      const int mt = m0 / 16 + wm;                  // this warp's m16 tile
+      const int nt0 = n0 / 8 + wn * TN;             // and its first n8 tile
+      // m16 tiles wholly past the valid rows (a tail group's) are skipped
+      const int ntiles = mt * 16 < rows ? max(0, min(TN, d.NT - nt0)) : 0;
+      float acc[TN][4];
 #pragma unroll
-    for (int tt = 0; tt < MAXT; ++tt) {
-      const int t = tid + tt * kThreads;
-      if (t < tiles) {
-        const int rg = t / n_cg, cg = t % n_cg;
-#pragma unroll 8
-        for (int k = 0; k < kKC; ++k) {
-          const float4 a = *reinterpret_cast<const float4*>(As + k * Up + rg * 4);
-          const float4 b = *reinterpret_cast<const float4*>(Bs + k * SUp + cg * 4);
-          fma4x4(acc[tt], a, b);
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+      auto issue = [&](int slice) {                 // slice `slice` into its stage
+        if (slice < n_k) {
+          float* dst = work + (slice & 1) * stage1;
+          load_tile(dst, kLd1, qk_p + (size_t)m0 * d.dk, qk, rows_a, rows - m0, kLgKC,
+                    slice * kKC, d.dk, d.vec);
+          load_tile(dst + kLd1 * rows_a, kLd1, ck_p + (size_t)n0 * d.dk, ck, cols_b,
+                    d.SU - n0, kLgKC, slice * kKC, d.dk, d.vec);
+        }
+        cp_async_commit();                          // possibly empty: keeps the count uniform
+      };
+      issue(0);
+      for (int s = 0; s < n_k; ++s) {
+        issue(s + 1);                               // into the stage of slice s - 1
+        cp_async_wait_one();
+        __syncthreads();                            // slice s landed for every thread
+        const float* As = work + (s & 1) * stage1;
+        const float* Bs = As + kLd1 * rows_a;
+        if (ntiles > 0)                             // tiles past NT read zero-filled rows
+          warp_mma<TN, true>(acc, As + wm * 16 * kLd1, kLd1, Bs + wn * TN * 8 * kLd1, kLd1,
+                             kKC / 8);
+        __syncthreads();                            // stage s&1 free for slice s+2
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        if (j < ntiles) {
+          float* p = st + (size_t)(mt * 16 + g) * d.ldS + (nt0 + j) * 8 + 2 * t;
+          *reinterpret_cast<float2*>(p) = make_float2(acc[j][0], acc[j][1]);
+          *reinterpret_cast<float2*>(p + 8 * d.ldS) = make_float2(acc[j][2], acc[j][3]);
         }
       }
     }
-    __syncthreads();                          // stage s&1 free for slice s+2
   }
 
-  // the first value slice flies while the scores are stored and softmaxed
-  const int stage3 = SUp * d.DC;
+  // the first value slice flies while the softmax runs
+  const int ldV = d.DC + 4;                         // ≡ 4 mod 16: rows 2t, 2t+1 conflict-free
+  const int stage3 = d.Np * ldV;
   const int n_d = (d.dk + d.DC - 1) / d.DC;
-  load_values_slice(work, cv_p, d, 0);
+  load_tile(work, ldV, cv_p, cv, d.Np, d.SU, d.lgDC, 0, d.dk, d.vec);
   cp_async_commit();
+  __syncthreads();                                  // every score stored
 
-#pragma unroll
-  for (int tt = 0; tt < MAXT; ++tt) {
-    const int t = tid + tt * kThreads;
-    if (t < tiles) {
-      const int rg = t / n_cg, cg = t % n_cg;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[(cg * 4 + j) * Up + rg * 4 + i] = acc[tt][i][j];
+  // ---- phase 2: softmax over the S·U keys of each valid row; padded keys 0 ----
+  for (int m = warp; m < rows; m += kWarps) {
+    float* r = st + (size_t)m * d.ldS;
+    float mx = -INFINITY;
+    for (int j = lane; j < d.SU; j += 32) {
+      const float sc = r[j] / sqrt_dk;
+      r[j] = sc;
+      mx = fmaxf(mx, sc);
     }
-  }
-  __syncthreads();
-
-  // ---- phase 2: softmax over the S·U keys of each query row ----
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int u = warp; u < d.U; u += kThreads / 32) {
-      float m = -INFINITY;
-      for (int j = lane; j < d.SU; j += 32) {
-        const float sc = st[j * Up + u] / sqrt_dk;
-        st[j * Up + u] = sc;
-        m = fmaxf(m, sc);
-      }
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int j = lane; j < d.SU; j += 32) {
-        const float p = expf(st[j * Up + u] - m);
-        st[j * Up + u] = p;
-        sum += p;
-      }
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int j = lane; j < d.SU; j += 32) st[j * Up + u] /= sum;
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < d.SU; j += 32) {
+      const float p = expf(r[j] - mx);
+      r[j] = p;
+      sum += p;
     }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int j = lane; j < d.SU; j += 32) r[j] /= sum;
+    for (int j = d.SU + lane; j < d.Np; j += 32) r[j] = 0.f;
   }
 
   // ---- phase 3: proto = attn · V per slice of DC columns, fused distance ----
-  // The key axis is split between the two halves of the block: each thread
-  // owns one 4×4 prototype tile over half the keys. Half 1 leaves its
-  // partial tile in `red`; half 0 adds it and folds the squared difference
-  // from q_v into `part`.
-  const int tiles3 = (Up / 4) * G;            // <= kThreads / 2 (pick_dc)
-  const int half = tid / (kThreads / 2), ht = tid % (kThreads / 2);
-  const bool has_tile = ht < tiles3;
-  const int rg3 = ht >> (d.lgDC - 2), cg3 = ht & (G - 1);
-  const int j0 = half ? SUp / 2 : 0, j1 = half ? SUp : SUp / 2;
+  // Warp (wm3, kh, wn3) multiplies band wm3 over key half kh into column
+  // group wn3. With two halves (one row pass then), half 1 leaves its partial
+  // protos in `red` and half 0 adds them: a fixed order.
+  const int wn3 = warp % d.WN3, kh = warp / d.WN3 % d.KS, wm3 = warp / (d.WN3 * d.KS);
+  const int ksteps = d.Np / 8, kh0 = (ksteps + 1) / 2;
+  const int k_first = kh ? kh0 : 0, k_count = d.KS == 1 ? ksteps : kh ? ksteps - kh0 : kh0;
+  float4* red = reinterpret_cast<float4*>(work + 2 * stage3) +
+                (size_t)(wm3 * d.WN3 + wn3) * TN3 * 32 + lane;
+  const int nt0 = wn3 * TN3;                        // DC = 8·WN3·TN3: every tile in the slice
   for (int s = 0; s < n_d; ++s) {
-    if (s + 1 < n_d) load_values_slice(work + ((s + 1) & 1) * stage3, cv_p, d, (s + 1) * d.DC);
+    if (s + 1 < n_d)
+      load_tile(work + ((s + 1) & 1) * stage3, ldV, cv_p, cv, d.Np, d.SU, d.lgDC,
+                (s + 1) * d.DC, d.dk, d.vec);
     cp_async_commit();
     cp_async_wait_one();
-    __syncthreads();                          // slice s landed; softmax done
+    __syncthreads();                                // slice s landed; softmax done
     const float* Vs = work + (s & 1) * stage3;
     const int d0 = s * d.DC;
-    float qvr[4][4];
-    float pacc[4][4] = {};
-    if (has_tile) {
-      if (half == 0) {                        // issued before the key loop: latency hidden
+    for (int m0 = 0; m0 < d.Mp; m0 += d.WM * 16) {
+      const int mt = m0 / 16 + wm3;
+      const bool active = mt * 16 < rows;           // never read: rows past a tail group
+      const int r0 = mt * 16 + g;
+      // q_v for the epilogue, issued before the products; zero outside
+      float qvr[TN3][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < TN3; ++j) {
+        const int c = d0 + (nt0 + j) * 8 + 2 * t;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int u = rg3 * 4 + i, c = d0 + cg3 * 4 + jj;
-            qvr[i][jj] = (u < d.U && c < d.dk) ? qv_p[(size_t)u * d.dk + c] : 0.f;
-          }
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const bool ok = active && kh == 0 && r < rows;
+          const float* p = qv_p + (size_t)r * d.dk + c;
+          qvr[j][2 * h] = ok && c < d.dk ? p[0] : 0.f;
+          qvr[j][2 * h + 1] = ok && c + 1 < d.dk ? p[1] : 0.f;
+        }
       }
-#pragma unroll 4
-      for (int j = j0; j < j1; ++j) {
-        const float4 a = *reinterpret_cast<const float4*>(st + j * Up + rg3 * 4);
-        const float4 b = *reinterpret_cast<const float4*>(Vs + j * d.DC + cg3 * 4);
-        fma4x4(pacc, a, b);
-      }
-      if (half == 1) {
+      float acc[TN3][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          red[i * tiles3 + ht] = make_float4(pacc[i][0], pacc[i][1], pacc[i][2], pacc[i][3]);
-      }
-    }
-    __syncthreads();                          // half 1's partial tiles are in `red`
-    if (has_tile && half == 0) {
+      for (int j = 0; j < TN3; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int u = rg3 * 4 + i;
-        if (u >= d.U) continue;
-        const float4 o = red[i * tiles3 + ht];
-        const float other[4] = {o.x, o.y, o.z, o.w};
-        float sq = 0.f;
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      if (active)
+        warp_mma<TN3, false>(acc, st + (size_t)mt * 16 * d.ldS + k_first * 8, d.ldS,
+                             Vs + (size_t)k_first * 8 * ldV + nt0 * 8, ldV, k_count);
+      if (d.KS == 2) {                              // one row pass: every warp gets here
+        if (active && kh == 1) {
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (d0 + cg3 * 4 + jj < d.dk) {
-            const float diff = qvr[i][jj] - (pacc[i][jj] + other[jj]);
-            sq = fmaf(diff, diff, sq);
+          for (int j = 0; j < TN3; ++j)
+            red[j * 32] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        }
+        __syncthreads();                            // half 1's partial protos are in `red`
+        if (active && kh == 0) {
+#pragma unroll
+          for (int j = 0; j < TN3; ++j) {
+            const float4 o = red[j * 32];
+            acc[j][0] += o.x;
+            acc[j][1] += o.y;
+            acc[j][2] += o.z;
+            acc[j][3] += o.w;
           }
         }
-        part[u * G + cg3] += sq;
+      }
+      if (!active || kh != 0) continue;
+      // columns >= dk hold 0 in both q_v and proto, so they add exactly 0
+      float sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < TN3; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float diff = qvr[j][i] - acc[j][i];
+          sq[i >> 1] = fmaf(diff, diff, sq[i >> 1]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+      }
+      if (t == 0) {
+        part[r0 * d.WN3 + wn3] += sq[0];
+        part[(r0 + 8) * d.WN3 + wn3] += sq[1];
       }
     }
-    __syncthreads();                          // stage s&1 and `red` free again
+    __syncthreads();                                // stage s&1 and `red` free again
   }
 
-  if (tid == 0) {
+  // ---- each query's U rows, summed in a fixed order ----
+  for (int i = tid; i < nq; i += kThreads) {
     float total = 0.f;
     for (int u = 0; u < d.U; ++u) {
+      const float* p = part + (size_t)(i * d.U + u) * d.WN3;
       float row = 0.f;
-      for (int g = 0; g < G; ++g) row += part[u * G + g];
+      for (int c = 0; c < d.WN3; ++c) row += p[c];
       total += row;
     }
-    out[cell] = -total / (float)d.U;
+    out[((size_t)e * d.Q + q0 + i) * d.W + w] = -total / (float)d.U;
   }
 }
 
-template <int MAXT>
+template <int TN, int TN3>
 cudaError_t launch(const float* q_k, const float* q_v, const float* class_k,
                    const float* class_v, float* out, const Dims& d, size_t smem,
-                   unsigned cells, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tct_attention_kernel<MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   unsigned blocks, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tct_attention_kernel<TN, TN3>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  tct_attention_kernel<MAXT><<<cells, kThreads, smem, stream>>>(
+  tct_attention_kernel<TN, TN3><<<blocks, kThreads, smem, stream>>>(
       q_k, q_v, class_k, class_v, out, d, sqrtf((float)d.dk));
   return cudaGetLastError();
+}
+
+template <int TN>
+cudaError_t launch_tn3(const float* q_k, const float* q_v, const float* class_k,
+                       const float* class_v, float* out, const Dims& d, size_t smem,
+                       unsigned blocks, cudaStream_t stream) {
+  switch (d.tn3) {
+    case 1: return launch<TN, 1>(q_k, q_v, class_k, class_v, out, d, smem, blocks, stream);
+    case 2: return launch<TN, 2>(q_k, q_v, class_k, class_v, out, d, smem, blocks, stream);
+    default: return launch<TN, 4>(q_k, q_v, class_k, class_v, out, d, smem, blocks, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for S shots of U tuples,
-// or 0 when no configuration of the kernel takes that shape.
-size_t tct_attention_smem_bytes(int S, int U) {
-  const int Up = round4(U), SUp = round4(S * U);
-  const int dc = pick_dc(Up, SUp);
-  if (dc == 0 || (Up / 4) * (SUp / 4) > kMaxTiles) return 0;
-  return smem_floats(Up, SUp, dc) * sizeof(float);
+// Bytes of dynamic shared memory one block needs for S shots of U tuples in
+// groups of G queries, or 0 when no tiling of the kernel fits that shape.
+size_t tct_attention_smem_bytes(int S, int U, int G) {
+  Dims d{};
+  if (!plan(S, U, G, d)) return 0;
+  return smem_floats(d) * sizeof(float);
 }
 
 // q_k, q_v: (E, Q, U, dk); class_k, class_v: (E, W, S, U, dk); out: (E, Q, W).
-// All fp32, contiguous, on the current device. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// All fp32, contiguous, on the current device; G queries per block; vec16 != 0
+// asks for 16-byte copies, which need dk % 4 == 0 and 16-byte aligned
+// operands. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.
 int tct_attention_forward(const float* q_k, const float* q_v, const float* class_k,
                           const float* class_v, float* out, int E, int Q, int W,
-                          int S, int U, int dk, void* stream) {
-  const int Up = round4(U), SUp = round4(S * U);
-  const int dc = pick_dc(Up, SUp);
-  const Dims d{E, Q, W, S, U, dk, S * U, Up, SUp, dc, dc == 64 ? 6 : dc == 32 ? 5 : 4};
-  const int tiles = (Up / 4) * (SUp / 4);
-  if (d.DC == 0 || tiles > kMaxTiles || dk <= 0) return (int)cudaErrorInvalidValue;
-  const long long cells = (long long)E * Q * W;
-  if (cells == 0) return 0;
-  const size_t smem = smem_floats(Up, SUp, d.DC) * sizeof(float);
+                          int S, int U, int dk, int G, int vec16, void* stream) {
+  Dims d{};
+  if (dk <= 0 || !plan(S, U, G, d)) return (int)cudaErrorInvalidValue;
+  if (vec16 && dk % 4 != 0) return (int)cudaErrorInvalidValue;
+  d.E = E; d.Q = Q; d.W = W; d.dk = dk;
+  d.NG = cdiv(Q, G);
+  d.vec = vec16 ? 1 : 0;
+  const long long blocks = (long long)E * d.NG * W;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats(d) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned b = (unsigned)blocks;
   cudaError_t err;
-  if (tiles <= kThreads)
-    err = launch<1>(q_k, q_v, class_k, class_v, out, d, smem, (unsigned)cells, s);
-  else if (tiles <= 2 * kThreads)
-    err = launch<2>(q_k, q_v, class_k, class_v, out, d, smem, (unsigned)cells, s);
-  else
-    err = launch<4>(q_k, q_v, class_k, class_v, out, d, smem, (unsigned)cells, s);
+  switch (d.tn) {
+    case 2: err = launch_tn3<2>(q_k, q_v, class_k, class_v, out, d, smem, b, s); break;
+    case 5: err = launch_tn3<5>(q_k, q_v, class_k, class_v, out, d, smem, b, s); break;
+    case 9: err = launch_tn3<9>(q_k, q_v, class_k, class_v, out, d, smem, b, s); break;
+    default: err = launch_tn3<18>(q_k, q_v, class_k, class_v, out, d, smem, b, s);
+  }
   return (int)err;
 }
 

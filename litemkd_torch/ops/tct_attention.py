@@ -10,9 +10,13 @@ For every episode e, query q and class w::
 
 The kernel (``csrc/tct_attention.cu``) replaces the TPU kernel
 ``litemkd_tpu/ops/pallas_tct.py:_kernel``. Its source note says what bounds
-it on an H100 and how the design answers that. It is built with nvcc at
-first use into ``litemkd_torch/_build/`` (keyed by a hash of the source) and
-loaded with ctypes.
+it on an H100 and how the design answers that: both products on the tensor
+cores in split TF32, one block per (episode, class, group of G queries). It
+is built with nvcc at first use into ``litemkd_torch/_build/`` (keyed by a
+hash of the source) and loaded with ctypes. The wrapper picks G
+(:func:`group_size`) and the kernel's 16-byte copies where dk % 4 == 0 and
+every operand is 16-byte aligned (4-byte copies otherwise), and raises
+before any launch on a shape whose tiles do not fit shared memory.
 
 :func:`tct_attention` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device, or raises: there is no
@@ -84,9 +88,9 @@ class _TCTAttention(torch.autograd.Function):
 def _library() -> ctypes.CDLL:
     lib = library("tct_attention")
     lib.tct_attention_forward.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.tct_attention_forward.restype = ctypes.c_int
-    lib.tct_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tct_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.tct_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -110,7 +114,30 @@ def _check(q_k, q_v, class_k, class_v) -> None:
         raise ValueError(f"inputs on several devices: {devices}")
 
 
-def _launch(q_k, q_v, class_k, class_v) -> torch.Tensor:
+GROUPS = (1, 2, 4)
+
+
+def group_size(e: int, q: int, w: int, n_sm: int) -> int:
+    """Queries per kernel block, G in :data:`GROUPS`, for E episodes of Q
+    queries and W classes on a card of ``n_sm`` SMs.
+
+    A block of G queries reads its class tile once for G queries, so a
+    larger G moves fewer bytes, but it makes fewer, longer blocks. The cost
+    counted is waves × (G + 1): waves of E·W·⌈Q/G⌉ blocks at two blocks an
+    SM, each block's time as its G queries' products plus about one query's
+    worth for the class tile. The least cost wins; a tie goes to the larger
+    G. No G exceeds Q."""
+    def cost(g):
+        blocks = e * w * -(-q // g)
+        return -(-blocks // (2 * n_sm)) * (g + 1)
+    return min((g for g in GROUPS if g <= max(q, 1)),
+               key=lambda g: (cost(g), -g))
+
+
+def _launch(q_k, q_v, class_k, class_v, group=None) -> torch.Tensor:
+    """Launch the kernel with ``group`` queries per block, by default
+    :func:`group_size`'s choice (halved while it does not fit shared
+    memory). Raises before any launch on what the kernel does not take."""
     for name, t in (("q_k", q_k), ("q_v", q_v), ("class_k", class_k),
                     ("class_v", class_v)):
         if t.dtype != torch.float32:
@@ -120,18 +147,26 @@ def _launch(q_k, q_v, class_k, class_v) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous for the CUDA kernel")
     e, q, u, dk = q_k.shape
     w, s = class_k.shape[1], class_k.shape[2]
-    if dk == 0 or u == 0:
-        raise ValueError(f"empty tuple or feature axis: U={u}, dk={dk}")
+    if dk == 0 or u == 0 or s == 0:
+        raise ValueError(f"empty tuple, shot or feature axis: U={u}, S={s}, "
+                         f"dk={dk}")
     lib = _library()
-    if lib.tct_attention_smem_bytes(s, u) == 0:
-        raise ValueError(f"S={s}, U={u}: the score tile does not fit the "
-                         "kernel's shared memory or registers")
+    if group is None:
+        n_sm = torch.cuda.get_device_properties(q_k.device).multi_processor_count
+        group = group_size(e, q, w, n_sm)
+        while group > 1 and lib.tct_attention_smem_bytes(s, u, group) == 0:
+            group //= 2
+    if group < 1 or lib.tct_attention_smem_bytes(s, u, group) == 0:
+        raise ValueError(f"S={s}, U={u}, G={group}: the score tile does not "
+                         "fit the kernel's shared memory")
+    ops = (q_k, q_v, class_k, class_v)
+    vec16 = dk % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ops)
     out = torch.empty((e, q, w), dtype=torch.float32, device=q_k.device)
     with torch.cuda.device(q_k.device):
         stream = torch.cuda.current_stream(q_k.device).cuda_stream
         err = lib.tct_attention_forward(
-            q_k.data_ptr(), q_v.data_ptr(), class_k.data_ptr(),
-            class_v.data_ptr(), out.data_ptr(), e, q, w, s, u, dk, stream)
+            *(t.data_ptr() for t in ops), out.data_ptr(), e, q, w, s, u, dk,
+            group, int(vec16), stream)
     if err != 0:
         raise RuntimeError(f"tct_attention kernel launch failed: CUDA error {err}")
     tct_attention.launches += 1

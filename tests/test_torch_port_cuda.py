@@ -31,22 +31,56 @@ def _inputs(seed, device, e, q, u, dk, w, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("e,q,u,dk,w,s", [
-    (8, 5, 28, 1152, 5, 5),     # eval chunk at the flagship width
-    (4, 25, 28, 1152, 5, 5),    # training micro-batch
-    (2, 3, 28, 100, 130, 1),    # ragged dk, W past 128
-    (3, 11, 6, 128, 3, 2),
-    (1, 1, 56, 64, 2, 5),       # U=56 (temp set 3): 32-column value slices
-    (1, 2, 120, 40, 3, 1),      # U=120: 16-column slices, 4 score tiles a thread
+@pytest.mark.parametrize("e,q,u,dk,w,s,group", [
+    (8, 5, 28, 1152, 5, 5, None),     # eval chunk at the flagship width
+    (4, 25, 28, 1152, 5, 5, None),    # training micro-batch
+    (2, 3, 28, 100, 130, 1, None),    # ragged dk, W past 128
+    (3, 11, 6, 128, 3, 2, None),
+    (1, 1, 56, 64, 2, 5, None),       # U=56 (temp set 3)
+    (1, 2, 120, 40, 3, 1, None),      # U=120: eight m16 tiles
+    (2, 3, 28, 97, 5, 5, None),       # dk % 4 != 0: the 4-byte copy path
+    (1, 3, 56, 1152, 5, 5, None),     # U=56 at the flagship dk: 18 score tiles a warp
+    (1, 2, 20, 64, 2, 32, None),      # 640 keys: three score passes, 16-column slices
+    (2, 5, 28, 64, 3, 5, 5),          # G=5: 140 rows, two row passes
+    (4, 25, 28, 1152, 5, 5, 1),       # the group sizes of the sweep
+    (4, 25, 28, 1152, 5, 5, 2),
+    (4, 25, 28, 1152, 5, 5, 4),       # a tail group of one query
+    (3, 7, 28, 96, 4, 2, 4),          # a tail group of three queries
 ])
-def test_kernel_matches_plain(cuda_device, e, q, u, dk, w, s):
+def test_kernel_matches_plain(cuda_device, e, q, u, dk, w, s, group):
     args = _inputs(q + w, cuda_device, e, q, u, dk, w, s)
     before = ta.tct_attention.launches
-    got = ta.tct_attention(*args)
+    got = (ta.tct_attention(*args) if group is None
+           else ta._launch(*args, group=group))
     torch.cuda.synchronize()
     assert ta.tct_attention.launches == before + 1
     want = ta.tct_attention_plain(*args)
     assert got.shape == (e, q, w) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,q", [(8, 5), (4, 25)])
+def test_kernel_is_bitwise_deterministic(cuda_device, e, q):
+    args = _inputs(e * q, cuda_device, e, q, 28, 1152, 5, 5)
+    first = ta.tct_attention(*args)
+    assert torch.equal(ta.tct_attention(*args), first)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_misaligned_operands(cuda_device):
+    """Operands sliced from a larger buffer one float in: contiguous, but not
+    16-byte aligned, so the kernel takes its 4-byte copies."""
+    args = _inputs(3, cuda_device, 2, 5, 28, 1152, 5, 5)
+    shifted = []
+    for a in args:
+        buf = torch.empty(a.numel() + 1, device=cuda_device)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        shifted.append(view)
+    got = ta.tct_attention(*shifted)
+    want = ta.tct_attention_plain(*args)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
@@ -60,6 +94,14 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         ta.tct_attention(strided, *args[1:])
     with pytest.raises(ValueError):
         ta.tct_attention(args[0].cpu(), *args[1:])
+    # 4,096 keys of U=4: the 16 × 4,096 score tile exceeds shared memory
+    wide = _inputs(1, cuda_device, 1, 1, 4, 8, 1, 1024)
+    before = ta.tct_attention.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ta.tct_attention(*wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        ta._launch(*args, group=512)
+    assert ta.tct_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -80,6 +80,89 @@ def test_wrapper_rejects_mismatched_shapes(bad):
         ta.tct_attention(qk, qv, ck, cv)
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated on the CPU: split TF32 (each operand
+# x as hi = tf32(x), rounded to nearest, and lo = x - hi, which the tensor
+# core reads truncated to TF32; each product as lo·hi + hi·lo + hi·hi in
+# fp32) against tct_attention_xla, and one TF32 pass beside it
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does: on the bit pattern, add half of the
+    dropped 13 bits and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """The top 19 bits of fp32 x: what the tensor core reads of a TF32
+    operand given as fp32 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(eq, a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _mm_single(eq, a, b):
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _tct_emulated(mm, q_k, q_v, class_k, class_v):
+    e, q, u, dk = q_k.shape
+    w, s = class_k.shape[1], class_k.shape[2]
+    ck = class_k.reshape(e, w, s * u, dk)
+    cv = class_v.reshape(e, w, s * u, dk)
+    attn = torch.softmax(mm("equd,ewjd->eqwuj", q_k, ck) / float(dk) ** 0.5, -1)
+    proto = mm("eqwuj,ewjd->eqwud", attn, cv)
+    diff = q_v[:, :, None] - proto
+    return -(diff * diff).sum(dim=(-2, -1)) / u, proto
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32_truncated(x), torch.tensor(
+        [1.0, 1.0, 1.0, -1.0, 1.0], dtype=torch.float32))
+
+
+@pytest.mark.parametrize("q,seed", [(1, 0), (3, 1), (5, 2)])
+def test_split_tf32_matches_xla_at_flagship_width(q, seed):
+    """At U=28, S=5, dk=1152, W=5 the split-TF32 arithmetic of
+    csrc/tct_attention.cu lies within chip_smoke.py's 1e-4·max|ref| of
+    tct_attention_xla. Against a float64 run, one TF32 pass puts at least
+    10× more error into the prototypes, the products' output (the logits'
+    own fp32 rounding, ~1e-7 of max|ref|, hides much of it there)."""
+    arrs = _tct_inputs(100 + seed, 1, q, 28, 1152, 5, 5)
+    want = np.asarray(jax.vmap(pt.tct_attention_xla)(*arrs))
+    logits, proto = _tct_emulated(_mm_split, *_torch(arrs))
+    assert np.abs(logits.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    _, exact = _tct_emulated(torch.einsum, *(a.double() for a in _torch(arrs)))
+    _, single = _tct_emulated(_mm_single, *_torch(arrs))
+    err_split = (proto.double() - exact).abs().max().item()
+    err_single = (single.double() - exact).abs().max().item()
+    assert err_single >= 10 * err_split
+
+
+@pytest.mark.parametrize("e,q,w,n_sm,want", [
+    (8, 5, 5, 132, 1),      # eval chunk: 200 blocks at G=1, 120 at G=2
+    (4, 25, 5, 132, 2),     # training micro-batch: 260 blocks, one wave
+    (1, 3, 5, 132, 1),      # Q smaller than the largest G
+    (1, 1, 5, 132, 1),      # one query
+    (64, 25, 5, 132, 4),    # many waves: the class tile's reads dominate
+])
+def test_group_size(e, q, w, n_sm, want):
+    g = ta.group_size(e, q, w, n_sm)
+    assert g == want and g in ta.GROUPS and g <= max(q, 1)
+
+
 def test_class_sort_matches_jax():
     rng = np.random.default_rng(3)
     way, shot = 4, 3
