@@ -28,7 +28,17 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    the end) through ``litemkd_torch.cli.train.main``, with the launch
    counts read around it; the checkpoint it wrote through the eval CLI;
    then the device-resident training rate with the BN kernels and with
-   cuDNN.
+   cuDNN;
+6. MFM teacher: the tiny fp32 teacher on the card against the CPU (forward
+   logits, one SGD step, extracted features); then at the full width of
+   ``preset("mfm_teacher")`` on a seeded per-modality feature tree written
+   under ``.chip_smoke/``: 2 training steps of 16 episodes and an
+   8-episode eval through ``litemkd_torch.cli.train_teacher.main`` with
+   the launch counts read around it, the checkpoint through
+   ``--test_only``, and the whole tree through
+   ``litemkd_torch.cli.extract.main``; then the device-resident training
+   step, eval chunk and extraction rates, peak memory, and one training
+   step under the profiler.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -47,8 +57,10 @@ import torch
 import torch.nn.functional as F
 
 from litemkd_torch import preset
+from litemkd_torch.cli import extract as cli_extract
 from litemkd_torch.cli import test as cli_test
 from litemkd_torch.cli import train as cli_train
+from litemkd_torch.cli import train_teacher as cli_teacher
 from litemkd_torch.cli.common import build_sampler
 from litemkd_torch.data import SyntheticEpisodeSource
 from litemkd_torch.distill import merge_logits
@@ -56,7 +68,10 @@ from litemkd_torch.ops import _build
 from litemkd_torch.ops import batch_norm as bn
 from litemkd_torch.ops import tct_attention as ta
 from litemkd_torch.ops.distances import support_dk_logits
-from litemkd_torch.train import EpisodeBatch, create_train_state, make_train_step
+from litemkd_torch.train import (CheckpointManager, EpisodeBatch,
+                                 create_mfm_train_state,
+                                 create_train_state, make_mfm_eval_step,
+                                 make_mfm_train_step, make_train_step)
 from litemkd_torch.train.loop import to_device
 from litemkd_torch.utils.metrics import per_episode_accuracy
 
@@ -65,6 +80,7 @@ TF32_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s in the tensor cores
 HBM_RATE = 3.35e12    # H100 SXM HBM3 bytes/s
 EVAL = dict(e=8, q=5, u=28, dk=1152, w=5, s=5)    # main path: 8-episode eval chunk
 TRAIN = dict(e=4, q=25, u=28, dk=1152, w=5, s=5)  # training micro-batch of 4
+MFM_TRAIN = dict(e=16, q=25, u=28, dk=1152, w=5, s=5)  # MFM step: 16 episodes at once
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
           dict(e=3, q=11, u=28, dk=100, w=7, s=3),
           dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
@@ -210,12 +226,14 @@ def time_kernel(shape, args):
 
 
 def tct_phase():
-    """The TCT kernel at both main-path shapes (checked, deterministic,
+    """The TCT kernel at the main paths' shapes (checked, deterministic,
     timed), the group-size sweep there, the ragged shapes, and misaligned
-    operands. Returns the eval shape's error and times."""
+    operands. Returns the eval shape's error and the times at each
+    shape."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     times = {}
-    for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1)):
+    for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1),
+                              ("mfm_train", MFM_TRAIN, 3)):
         args, err = check_kernel(shape, seed)
         times[name] = time_kernel(shape, args)
         auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
@@ -239,7 +257,7 @@ def tct_phase():
         del args
     for i, shape in enumerate(RAGGED):
         check_kernel(shape, 2 + i)
-    return err_eval, times["eval"]
+    return err_eval, times
 
 
 # Variants of csrc/tct_attention.cu, each a list of (text, replacement) edits
@@ -752,6 +770,282 @@ def train_device_rate(card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# MFM fusion teacher
+# ---------------------------------------------------------------------------
+
+MFM_MODS = ("rgb", "depth", "flow")
+MFM_CLASSES, MFM_TRAIN_VIDS, MFM_TEST_VIDS = 10, 12, 8
+MFM_NOISE = 4.0       # around unit-variance prototypes: accuracy off 100%
+MFM_EXTRACT_BATCH = 64
+
+
+def mfm_reference_check():
+    """The tiny MFM teacher in fp32, dropout 0, on the card against the
+    same weights and synthetic episodes on the CPU: forward logits, one SGD
+    step (metrics 1e-4 relative, gradients 1e-3·max|g|, updated parameters
+    1e-4·max|p|) and extracted features, each within 1e-4·max."""
+    base = preset("tiny")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, compute_dtype="float32", trans_dropout=0.0))
+    batch = cli_teacher.SyntheticMultiModalSource(cfg, seed=1).sample_batch(
+        np.random.default_rng(0), cfg.train.tasks_per_batch)
+    cpu = create_mfm_train_state(cfg, "cpu")
+    gpu = create_mfm_train_state(cfg, "cuda",
+                                 state_dict=copy.deepcopy(cpu.model.state_dict()))
+    errs = {}
+    outs = {}
+    for state, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        b = to_device(batch, torch.device(dev))
+        with torch.inference_mode():
+            model = state.model.eval()
+            outs[dev] = (model(b.support_clips, b.support_labels,
+                               b.query_clips)["logits"].cpu(),
+                         model.extract(b.query_clips).cpu())
+    for i, name in enumerate(("logits", "features")):
+        want, got = outs["cpu"][i], outs["cuda"][i]
+        errs[name] = (got - want).abs().max().item()
+        if not errs[name] <= 1e-4 * want.abs().max().item():
+            raise AssertionError(f"tiny MFM {name}, cuda vs cpu: {errs[name]}")
+    step = make_mfm_train_step(cfg)
+    m_cpu = step(cpu, to_device(batch, torch.device("cpu")))
+    m_gpu = step(gpu, to_device(batch, torch.device("cuda")))
+    torch.cuda.synchronize()
+    for k, v in m_cpu.items():
+        if not abs(m_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-6:
+            raise AssertionError(f"MFM train step metric {k}: cuda "
+                                 f"{m_gpu[k].item()} vs cpu {v.item()}")
+    gp = dict(gpu.model.named_parameters())
+    grads = {n: p.grad for n, p in cpu.model.named_parameters() if p.grad is not None}
+    g_max = max(g.abs().max().item() for g in grads.values())
+    errs["grads"] = max(_max_err(gp[n].grad, g) for n, g in grads.items())
+    if not errs["grads"] <= 1e-3 * g_max:
+        raise AssertionError(f"MFM gradients: {errs['grads']} > 1e-3 * {g_max}")
+    p_max = max(p.abs().max().item() for p in cpu.model.parameters())
+    errs["params"] = max(_max_err(gp[n], p) for n, p in cpu.model.named_parameters())
+    if not errs["params"] <= 1e-4 * p_max:
+        raise AssertionError(f"MFM updated parameters: {errs['params']}")
+    log("[reference] tiny fp32 MFM teacher, cuda vs cpu: max_abs_err "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (max|g|={g_max:.3e}, max|p|={p_max:.3e}); metrics "
+        + ", ".join(f"{k}={m_gpu[k].item():.6g}/{v.item():.6g}"
+                    for k, v in m_cpu.items()))
+
+
+def write_feature_tree(root, seq_len, dim, seed=0):
+    """Per-modality feature trees ``root/<modality>/<class>/<video>/
+    feature.npy`` (fp32, seq_len × dim) with split lists under
+    ``root/splits``: every video is its class's prototype plus noise; the
+    depth file of one video is left out (it zero-fills). Returns the number
+    of videos."""
+    rng = np.random.default_rng(seed)
+    train, test = [], []
+    for c in range(MFM_CLASSES):
+        cname = f"class{c:02d}"
+        protos = rng.standard_normal((len(MFM_MODS), seq_len, dim), np.float32)
+        for v in range(MFM_TRAIN_VIDS + MFM_TEST_VIDS):
+            vname = f"video_{c:02d}_{v:02d}"
+            noise = rng.standard_normal((len(MFM_MODS), seq_len, dim), np.float32)
+            for i, m in enumerate(MFM_MODS):
+                if (c, v, m) == (0, 0, "depth"):
+                    continue
+                d = root / m / cname / vname
+                d.mkdir(parents=True)
+                np.save(d / "feature.npy", protos[i] + MFM_NOISE * noise[i])
+            (train if v < MFM_TRAIN_VIDS else test).append(f"{cname}/{vname}")
+    (root / "splits").mkdir()
+    (root / "splits" / "trainlist03.txt").write_text("\n".join(train) + "\n")
+    (root / "splits" / "testlist03.txt").write_text("\n".join(test) + "\n")
+    return len(train) + len(test)
+
+
+def mfm_main_path(card, run_root):
+    """Full-width MFM training, its checkpoint through ``--test_only`` and
+    the whole tree through extraction, each through its CLI with the
+    launch counts read just around it. Returns the training run's
+    counts."""
+    cfg = preset("mfm_teacher")
+    ep, dim = cfg.episode, cfg.model.trans_linear_in_dim
+    root, ckdir, out = run_root / "tree", run_root / "mfm", run_root / "fused"
+    t0 = time.perf_counter()
+    n_videos = write_feature_tree(root, ep.seq_len, dim)
+    log(f"[mfm] feature tree: {n_videos} videos x {len(MFM_MODS)} modalities of "
+        f"({ep.seq_len}, {dim}) fp32 in {time.perf_counter() - t0:.2f} s")
+    data = ["--feature_root", str(root), "--device", "cuda"]
+    argv = ["--preset", "mfm_teacher", "--dataset", "hmdb", "--traintestlist",
+            str(root / "splits"), "--tasks_per_batch", str(TRAIN_EPISODES),
+            "--training_iterations",
+            str(TRAIN_EPISODES * TRAIN_STEPS), "--test_iters",
+            str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
+            "--print_freq", "1", "-c", str(ckdir)] + data
+    n_sets = len(cfg.model.temp_set)
+    eval_chunks = math.ceil(EVAL_TASKS / 8)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, history = cli_teacher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del state
+    want = dict(tct_attention=n_sets * (TRAIN_STEPS + eval_chunks), bn_sums=0,
+                bn_bwd_sums=0)
+    log(f"[mfm] training launches {counts} over {TRAIN_STEPS} steps of "
+        f"{TRAIN_EPISODES} episodes and {eval_chunks} eval chunk(s); expected {want}")
+    if counts != want:
+        raise AssertionError(f"MFM launch counts {counts} != {want}")
+    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
+               for line in f.read_text().splitlines()]
+    steps = [r for r in records if "task_loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            math.isfinite(r[k]) for r in steps for k in r):
+        raise AssertionError(f"bad MFM training metrics {steps}")
+    if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
+        raise AssertionError(f"bad MFM mid-training eval {history}")
+    log("[mfm] per-step metrics: " + json.dumps(
+        [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
+        + f"; eval {history[0]}")
+    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    ckpt = ckdir / f"checkpoint_{n_eps}.pt"
+    log(f"[mfm] CLI training on {card}: {n_eps / wall:.3f} episodes/s end to end "
+        f"({wall:.2f} s for {n_eps} training + {EVAL_TASKS} eval episodes, model "
+        f"set-up, feature reads and the {ckpt.stat().st_size / 1e9:.3f} GB "
+        f"checkpoint write included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    summary = cli_teacher.main(["--test_only", "-m", str(ckpt), "--num_test_tasks",
+                                str(EVAL_TASKS)] + data)
+    test_counts = read_counts()
+    if test_counts["tct_attention"] != n_sets * eval_chunks or \
+            summary["n_tasks"] != EVAL_TASKS or not math.isfinite(summary["accuracy"]):
+        raise AssertionError(f"bad --test_only run: {summary}, {test_counts}")
+    log(f"[mfm] {ckpt.name} through --test_only: {summary}; launches {test_counts}")
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    n = cli_extract.main(["--mode_extract", "mfm", "-m", str(ckpt), "--out", str(out),
+                          "--batch_size", str(MFM_EXTRACT_BATCH)] + data)
+    torch.cuda.synchronize()
+    ext_wall = time.perf_counter() - t0
+    ext_counts = read_counts()
+    files = sorted(out.rglob("feature.npy"))
+    if n != n_videos or len(files) != n_videos or ext_counts["tct_attention"] != 0:
+        raise AssertionError(f"extraction wrote {n} / {len(files)} of {n_videos} "
+                             f"videos with launches {ext_counts}")
+    for f in files:
+        a = np.load(f)
+        if a.shape != (ep.seq_len, dim) or a.dtype != np.float32 or \
+                not np.isfinite(a).all():
+            raise AssertionError(f"bad fused feature {f}: {a.shape} {a.dtype}")
+    log(f"[mfm] extraction through the CLI on {card}: {n} videos in {ext_wall:.2f} s "
+        f"({n / ext_wall:.3f} videos/s end to end, model load included); "
+        f"launches {ext_counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mfm_device_batch(cfg, e, train, seed=0):
+    """An MFM episode batch made on the card: per-modality features and
+    shuffled labels with each class ``shot`` (and ``query_per_class``)
+    times."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ep = cfg.episode
+    s = ep.way * ep.shot
+    q = ep.way * (ep.query_per_class if train else ep.query_per_class_test)
+
+    def labels(n):
+        return torch.stack([torch.randperm(n, generator=g, device="cuda") % ep.way
+                            for _ in range(e)])
+
+    def feats(n):
+        return {m: torch.randn((e, n, ep.seq_len, cfg.model.trans_linear_in_dim),
+                               generator=g, device="cuda")
+                for m in cfg.model.modalities}
+
+    return EpisodeBatch(feats(s), labels(s), feats(q), labels(q))
+
+
+def mfm_forward_flops(model, n_videos, seq_len, with_head=True):
+    """Operations of one forward over ``n_videos`` videos of ``seq_len``
+    frames, 2 per
+    multiply-add of the linear layers: every frame token through
+    ``three_fusion`` once and the pair ``fusion`` once per modality after
+    the first; with the head, every frame tuple through each TCT's
+    ``k_linear`` and ``v_linear``. The attention products over 8 frames and
+    the TCT kernel add well under 1% and are left out."""
+    def macs(module):
+        return sum(p.numel() for n, p in module.named_parameters()
+                   if p.dim() == 2 and "position_embeddings" not in n)
+
+    tokens = n_videos * seq_len
+    fusion = tokens * (macs(model.three_fusion)
+                       + (len(model.modalities) - 1) * macs(model.fusion))
+    head = n_videos * sum(t.tuples.shape[0] * (t.k_linear.weight.numel()
+                                               + t.v_linear.weight.numel())
+                          for t in model.bracnch.transformers)
+    return 2 * (fusion + (head if with_head else 0))
+
+
+def mfm_device_rate(card, run_root):
+    """Steady-state rates at the full width of ``preset("mfm_teacher")``
+    with the data already on the card: a 16-episode training step (CUDA
+    events over 3 steps after one warm-up) with its peak memory, an
+    8-episode eval chunk, and extraction of a batch of videos; then one
+    training step under the profiler. Also the host-clock seconds of the
+    CLI's fixed costs: the train state's set-up (random weights drawn on
+    the host, then moved to the card) and one checkpoint write."""
+    cfg = preset("mfm_teacher")
+    t0 = time.perf_counter()
+    state = create_mfm_train_state(cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    CheckpointManager(str(run_root / "ckpt")).save(state)
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(run_root / "ckpt")
+    log(f"[mfm] fixed costs on {card}: train state set-up {setup_s:.2f} s, "
+        f"checkpoint write {save_s:.2f} s")
+    batch = mfm_device_batch(cfg, TRAIN_EPISODES, True)
+    step = make_mfm_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+    ep, t = cfg.episode, cfg.episode.seq_len
+    flops = 3 * mfm_forward_flops(state.model, TRAIN_EPISODES * ep.way
+                                  * (ep.shot + ep.query_per_class), t)
+    log(f"[mfm] device-resident training on {card}: {1e3 * TRAIN_EPISODES / ms:.3f} "
+        f"episodes/s ({ms:.3f} ms per {TRAIN_EPISODES}-episode step; "
+        f"{flops / 1e12:.2f} TFLOP in its linear layers, forward and backward, at "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, {100 * flops / ms / 1e-3 / FP32_PEAK:.1f}% "
+        f"of the fp32 peak); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_step(lambda: step(state, batch), "MFM training step")
+    del batch
+    model = state.model.eval()
+    eval_batch = mfm_device_batch(cfg, 8, False, seed=1)
+    eval_step = make_mfm_eval_step(cfg)
+    eval_ms = cuda_ms(lambda: eval_step(model, eval_batch), 5, warmup=1)
+    flops = mfm_forward_flops(model, 8 * ep.way * (ep.shot + ep.query_per_class_test), t)
+    log(f"[mfm] device-resident eval on {card}: {8e3 / eval_ms:.3f} episodes/s "
+        f"({eval_ms:.3f} ms per 8-episode chunk; {flops / eval_ms / 1e9:.2f} TFLOP/s "
+        f"in the linear layers)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    videos = {m: torch.randn((MFM_EXTRACT_BATCH, cfg.episode.seq_len,
+                              cfg.model.trans_linear_in_dim), generator=g, device="cuda")
+              for m in cfg.model.modalities}
+    with torch.inference_mode():
+        ext_ms = cuda_ms(lambda: model.extract(videos), 5, warmup=1)
+    flops = mfm_forward_flops(model, MFM_EXTRACT_BATCH, t, with_head=False)
+    log(f"[mfm] device-resident extraction on {card}: "
+        f"{1e3 * MFM_EXTRACT_BATCH / ext_ms:.3f} videos/s ({ext_ms:.3f} ms per "
+        f"{MFM_EXTRACT_BATCH} videos; {flops / ext_ms / 1e9:.2f} TFLOP/s in the "
+        f"linear layers)")
+    del state, model, eval_batch, videos
+    torch.cuda.empty_cache()
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -773,7 +1067,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions, then the tiny slices
-    err_eval, eval_times = tct_phase()
+    err_eval, tct_times = tct_phase()
     tct_grad_check(TRAIN, 5)
     tct_grad_check(RAGGED[0], 6)
     bn_times, bn_err = bn_phase()
@@ -813,11 +1107,25 @@ def main():
         shutil.rmtree(run_root, ignore_errors=True)
     train_device_rate(card)
 
+    # 6. MFM teacher: tiny card-vs-CPU, then full width through its CLIs
+    mfm_reference_check()
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        mfm_counts = mfm_main_path(card, run_root)
+        mfm_device_rate(card, run_root)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    t = tct_times["mfm_train"]
+    log(f"[mfm] TCT kernel at the MFM training shape {MFM_TRAIN}: kernel_ms="
+        f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+        f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, split TF32)")
+
     print(json.dumps({"kernels": [
         dict(name="tct_attention", route="cuda",
              source="litemkd_torch/csrc/tct_attention.cu",
              replaces="litemkd_tpu/ops/pallas_tct.py:61",
-             launches=counts["tct_attention"], max_abs_err=err_eval, **eval_times),
+             launches=counts["tct_attention"] + mfm_counts["tct_attention"],
+             max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=counts["bn_sums"], max_abs_err=bn_err, **bn_times["sums"]),

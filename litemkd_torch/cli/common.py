@@ -1,8 +1,10 @@
-"""Shared CLI plumbing of the port: the flags that its eval and training
-paths read, copied from ``litemkd_tpu/cli/common.py:67-324`` (same names,
-same mapping onto the typed Config), plus ``--device`` and the sampler and
-device choice. Flags of paths the port does not have yet (real video data,
-meshes, teacher eval) come with those paths.
+"""Shared CLI plumbing of the port: the flags that its eval, training,
+MFM-teacher and extraction paths read, copied from
+``litemkd_tpu/cli/common.py:67-324`` and the JAX package's
+``train_teacher``/``extract`` CLIs (same names, same mapping onto the typed
+Config), plus ``--device`` and the sampler and device choice. Flags of
+paths the port does not have yet (video trees, meshes, teacher eval) come
+with those paths.
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset",
                    choices=["ssv2", "kinetics", "hmdb", "ucf", "synthetic"],
                    default=None)
+    p.add_argument("--split", type=int, default=None)
+    p.add_argument("--traintestlist", default=None)
     p.add_argument("--synthetic_noise", type=float, default=None,
                    help="synthetic-dataset difficulty (noise scale around "
                         "the class prototypes; default 0.3)")
@@ -88,9 +92,53 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="no checkpoints, no log files")
 
 
+def add_fusion_args(p: argparse.ArgumentParser) -> None:
+    """The MFM teacher's flags (``litemkd_tpu/cli/train_teacher.py`` and
+    ``cli/extract.py``): per-modality feature trees and the fusion's
+    geometry."""
+    p.add_argument("--feature_root", default=None,
+                   help="dir containing per-modality feature trees "
+                        "(<root>/<modality>/<class>/<video>/feature.npy)")
+    p.add_argument("--modalities", nargs="+", default=None,
+                   help="modality names, m1 first (default rgb depth flow)")
+    p.add_argument("--trans_num", type=int, default=None,
+                   help="fusion encoder depth")
+    p.add_argument("--shirt_num", type=int, default=None,
+                   help="circular time shift of modality 2 (and 3+)")
+
+
+def apply_fusion_args(cfg: Config, args: argparse.Namespace) -> Config:
+    """``--modalities``, ``--trans_num`` and ``--shirt_num`` on top of
+    ``cfg``, as the JAX package's teacher CLIs apply them."""
+    m = cfg.model
+    return cfg.replace(model=dataclasses.replace(
+        m, trans_num=m.trans_num if args.trans_num is None else args.trans_num,
+        shirt_num=m.shirt_num if args.shirt_num is None else args.shirt_num,
+        modalities=tuple(args.modalities) if args.modalities
+        else m.modalities))
+
+
 def add_test_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--test_model_path", "-m", default=None,
                    help="reference-layout student .pt (strict load)")
+
+
+def dataset_paths(dataset: str, root: str = "data") -> dict:
+    """The reference's per-dataset path table (options.py:126-159),
+    normalised to <root>/<dataset>/{splits,l8/rgb_l8,feature/multi_feature},
+    as the JAX package fills it in."""
+    table = {
+        "kinetics": ("kinetics", "kinetics/splits/kineticsTrainTestlist"),
+        "ucf": ("ucf101", "ucf101/splits/ucf_ARN"),
+        "hmdb": ("hmdb", "hmdb/splits/hmdb_ARN"),
+        "ssv2": ("ssv2", "ssv2/splits/somethingsomethingv2TrainTestlist"),
+    }
+    if dataset == "synthetic":
+        return dict(traintestlist=None, rgb_path=None, teacher_path=None)
+    folder, splits = table[dataset]
+    return dict(traintestlist=os.path.join(root, splits),
+                rgb_path=os.path.join(root, folder, "l8/rgb_l8"),
+                teacher_path=os.path.join(root, folder, "feature/multi_feature"))
 
 
 def load_saved_config(*candidates: Optional[str]) -> Optional[Config]:
@@ -152,8 +200,14 @@ def build_config(args: argparse.Namespace,
         soft_loss_weight=pick(d.soft_loss_weight, args.soft_loss_weight),
         hard_loss_weight=pick(d.hard_loss_weight, args.hard_loss_weight)))
     dc = cfg.data
+    dataset = pick(dc.dataset, args.dataset)
+    paths = dataset_paths(dataset)
     cfg = cfg.replace(data=dataclasses.replace(
-        dc, dataset=pick(dc.dataset, args.dataset),
+        dc, dataset=dataset, split=pick(dc.split, args.split),
+        traintestlist=(args.traintestlist or dc.traintestlist
+                       or paths["traintestlist"]),
+        rgb_path=dc.rgb_path or paths["rgb_path"],
+        teacher_path=dc.teacher_path or paths["teacher_path"],
         synthetic_noise=pick(dc.synthetic_noise, args.synthetic_noise)))
     if args.mode:
         cfg = cfg.replace(mode=args.mode)

@@ -1,0 +1,170 @@
+"""MFM fusion-teacher training and evaluation (port of the ``--fusion mfm``
+part of ``litemkd_tpu/cli/train_teacher.py:76-287``; the reference's
+``multi_fusion.py --model ThreeTRXShiftLoopTime``):
+
+    python -m litemkd_torch.cli.train_teacher --preset mfm_teacher \\
+        --feature_root R --traintestlist R/splits -c DIR
+    python -m litemkd_torch.cli.train_teacher --test_only -m DIR/checkpoint_N.pt \\
+        --feature_root R --traintestlist R/splits
+    python -m litemkd_torch.cli.train_teacher --preset tiny --dataset synthetic \\
+        --device cpu -c /tmp/ck
+
+``--feature_root`` holds one feature tree per modality,
+``<root>/<modality>/<class>/<video>/feature.npy``. ``-m`` takes a
+``ThreeTRXShiftLoopTime`` ``.pt`` (the port's own checkpoint, one that the
+JAX package's ``export_mfm_checkpoint`` wrote, or the reference's), loaded
+strictly, or a checkpoint directory of the port, whose newest checkpoint is
+restored whole; training then continues from it, or ``--test_only``
+evaluates it. Runs on cuda unless ``--device`` says otherwise, in fp32 with
+TF32 off. Checkpoints and ``config.json`` go to ``-c``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from ..data.synthetic import SyntheticEpisodeSource
+from ..tools.weights import load_reference_mfm_state_dict
+from ..train import (CheckpointManager, EpisodeBatch, create_mfm_train_state,
+                     make_mfm_eval_step, make_mfm_train_step, run_eval,
+                     train_loop, verify_checkpoint_dir)
+from ..utils.logging import MetricsLogger
+from .common import (add_common_args, add_device_arg, add_fusion_args,
+                     add_train_args, apply_fusion_args, build_config,
+                     load_saved_config, resolve_device, save_run_config,
+                     set_fp32_math)
+
+
+class SyntheticMultiModalSource:
+    """In-memory multi-modal feature episodes for smoke runs and tests
+    (``litemkd_tpu/cli/train_teacher.py:25-59``): one
+    :class:`SyntheticEpisodeSource` per modality (seed + i), all drawing
+    the same episode geometry from one seed a batch. Each source draws its
+    frames too and they are thrown away, so one seed gives the JAX
+    package's batches."""
+
+    def __init__(self, cfg, n_classes=16, seed=0, noise=0.3):
+        self.cfg = cfg
+        self.sources = {m: SyntheticEpisodeSource(
+            cfg, n_classes=n_classes, seed=seed + i, noise=noise,
+            with_teacher_feats=True)
+            for i, m in enumerate(cfg.model.modalities)}
+
+    def sample_batch(self, rng, n_episodes, train=True) -> EpisodeBatch:
+        seed = int(rng.integers(0, 2 ** 31))
+        batches = {m: s.sample_batch(np.random.default_rng(seed), n_episodes,
+                                     train=train)
+                   for m, s in self.sources.items()}
+        first = next(iter(batches.values()))
+        return EpisodeBatch(
+            support_clips={m: b.support_feats for m, b in batches.items()},
+            support_labels=first.support_labels,
+            query_clips={m: b.query_feats for m, b in batches.items()},
+            query_labels=first.query_labels)
+
+
+def build_mm_sampler(cfg, feature_root):
+    """The synthetic source (at its default noise, as the JAX package
+    builds it), or the episode sampler over the per-modality feature trees
+    under ``feature_root``."""
+    if cfg.data.dataset == "synthetic":
+        return SyntheticMultiModalSource(cfg, seed=cfg.train.seed)
+    from ..data import MultiModalEpisodeSampler, MultiModalFeatureStore
+    paths = {m: os.path.join(feature_root, m) for m in cfg.model.modalities}
+    store = MultiModalFeatureStore(paths, cfg.data.traintestlist,
+                                   cfg.data.split, cfg.episode.seq_len,
+                                   cfg.model.trans_linear_in_dim)
+    return MultiModalEpisodeSampler(cfg, store)
+
+
+def parse(argv=None):
+    """(parser, args, cfg): the flags on top of the preset, or on top of
+    the ``config.json`` beside ``-m``."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    add_train_args(p)
+    add_fusion_args(p)
+    add_device_arg(p)
+    p.add_argument("--fusion", default="mfm",
+                   help="fusion teacher kind; the port has mfm "
+                        "(ThreeTRXShiftLoopTime)")
+    p.add_argument("--score_weights", "-a", nargs="+", type=float,
+                   default=None, help="TSF logit weights (not ported)")
+    p.add_argument("--branch_ckpt", action="append", default=None,
+                   help="TSF branch grafting (not ported)")
+    p.add_argument("--fixed_episode_file", default=None,
+                   help="fixed-episode replay (not ported)")
+    p.add_argument("--test_only", action="store_true",
+                   help="evaluate the teacher given by -m and exit")
+    p.add_argument("--test_model_path", "-m", default=None,
+                   help="ThreeTRXShiftLoopTime .pt (strict) or a checkpoint "
+                        "directory of the port")
+    args = p.parse_args(argv)
+    cfg = build_config(args, base=load_saved_config(args.test_model_path))
+    return p, args, apply_fusion_args(cfg, args)
+
+
+def _reject_unported(p, args, cfg) -> None:
+    if args.score_weights or args.branch_ckpt:
+        raise NotImplementedError(
+            "--score_weights and --branch_ckpt belong to TSF score fusion, "
+            "not ported yet (ROADMAP queue 6)")
+    if args.fixed_episode_file or cfg.data.fixed_episode_file:
+        raise NotImplementedError(
+            "fixed-episode replay is not ported yet (ROADMAP queue 3)")
+    if cfg.data.dataset != "synthetic" and not args.feature_root:
+        p.error("teacher training reads per-modality feature trees: pass "
+                "--feature_root (or --dataset synthetic for a smoke run)")
+
+
+def main(argv=None):
+    p, args, cfg = parse(argv)
+    _reject_unported(p, args, cfg)
+    device = resolve_device(args.device)
+    set_fp32_math()
+    if cfg.train.checkpoint_dir:
+        verify_checkpoint_dir(cfg.train.checkpoint_dir,
+                              cfg.train.resume_from_checkpoint)
+    path = args.test_model_path
+    state_dict = None
+    if path and not os.path.isdir(path):
+        state_dict = load_reference_mfm_state_dict(path, cfg)
+    state = create_mfm_train_state(cfg, device, args.fusion,
+                                   state_dict=state_dict)
+    log_dir = None if args.debug or args.test_only else (
+        cfg.train.checkpoint_dir or "log")
+    logger = MetricsLogger(log_dir=log_dir, run_name=args.fusion,
+                           print_freq=cfg.train.print_freq)
+    logger.info(f"config:\n{cfg.to_json()}")
+    save_run_config(cfg)
+    sampler = build_mm_sampler(cfg, args.feature_root)
+    if path and os.path.isdir(path):
+        CheckpointManager(path).restore(state)
+        logger.info(f"restored {path} @{state.episodes_seen} episodes")
+    elif path:
+        logger.info(f"loaded MFM teacher {path}")
+
+    eval_step = make_mfm_eval_step(cfg)
+    if args.test_only:
+        s = run_eval(cfg, state.model.eval(), sampler,
+                     n_tasks=cfg.train.num_test_tasks, eval_step=eval_step,
+                     seed=cfg.train.seed, device=device)
+        print(f"{cfg.data.dataset}: {s['accuracy']:.2f} ± "
+              f"{s['confidence']:.2f} over {s['n_tasks']} tasks")
+        logger.close()
+        return s
+
+    history = train_loop(cfg, state, sampler, make_mfm_train_step(cfg),
+                         eval_step, logger, device=device)
+    if history:
+        logger.info("eval history: " + json.dumps(history))
+    logger.close()
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

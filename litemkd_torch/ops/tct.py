@@ -1,5 +1,5 @@
-"""Temporal Cross Transformer, the TRX attention head
-(port of ``litemkd_tpu/ops/tct.py:43-119``).
+"""Temporal Cross Transformer, the TRX attention head, and the stack of
+them over several tuple sizes (port of ``litemkd_tpu/ops/tct.py:43-150``).
 
 The episode axis is an explicit leading batch dimension (it replaces the
 JAX package's ``nn.vmap``), so one kernel launch covers a whole chunk of
@@ -80,3 +80,26 @@ class TemporalCrossTransformer(nn.Module):
 
     def forward(self, support, support_labels, queries):
         return tct_attention(*self.project(support, support_labels, queries))
+
+
+class MultiSetTCT(nn.Module):
+    """One :class:`TemporalCrossTransformer` per entry of ``temp_set``, in
+    ``temp_set`` order, under the reference's ``transformers`` ModuleList;
+    the logits are the mean of the sets' logits (``MultiSetTCT``,
+    ``litemkd_tpu/ops/tct.py:122-150``). Each set launches the TCT kernel
+    once for the whole episode batch."""
+
+    def __init__(self, way: int, shot: int, seq_len: int, in_dim: int = 2048,
+                 out_dim: int = 1152, temp_set=(2,), dropout: float = 0.1,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.transformers = nn.ModuleList(
+            TemporalCrossTransformer(way, shot, seq_len, in_dim=in_dim,
+                                     out_dim=out_dim, set_size=s,
+                                     dropout=dropout,
+                                     compute_dtype=compute_dtype)
+            for s in temp_set)
+
+    def forward(self, support, support_labels, queries):
+        return torch.stack([t(support, support_labels, queries)
+                            for t in self.transformers], dim=-1).mean(dim=-1)

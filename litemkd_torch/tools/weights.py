@@ -1,8 +1,8 @@
-"""Carry JAX student and teacher weights across into the reference torch
-key layout, and load a reference teacher into the port.
+"""Carry JAX student, teacher and MFM weights across into the reference
+torch key layout, and load reference teachers into the port.
 
-The port's own code for what ``litemkd_tpu/tools/torch_export.py:35-215,
-308-322`` and ``torch_import.py:32-44, 199-217`` do: it takes the JAX
+The port's own code for what ``litemkd_tpu/tools/torch_export.py:35-322``
+and ``torch_import.py:32-44, 199-339`` do: it takes the JAX
 ``{"params", "batch_stats"}`` tree as numpy arrays (no JAX needed) and
 returns the state dict of a reference-layout student, which is also the
 port's ``BatchedStudent`` layout:
@@ -15,7 +15,9 @@ port's ``BatchedStudent`` layout:
 Conversions: Dense kernel (in, out) → Linear weight (out, in); conv HWIO →
 OIHW; BN scale/bias and mean/var → weight/bias and running stats
 (``num_batches_tracked`` 0); the unused ``norm_v`` gets identity values and
-``pe.pe`` the (1, int(1.5·seq_len), D) sinusoidal table.
+``pe.pe`` the (1, int(1.5·seq_len), D) sinusoidal table; an MFM
+encoder layer's q, k and v projections stack into the (3d, d)
+``in_proj_weight`` of torch's ``nn.MultiheadAttention``.
 """
 from __future__ import annotations
 
@@ -180,3 +182,83 @@ def teacher_state_dict_from_reference(sd: Dict[str, torch.Tensor],
         if k.startswith("classifier.transformers.") and src in sd:
             out[k] = sd[src]
     return out
+
+
+def _encoder_layer(sd, prefix, p):
+    sd[f"{prefix}.self_attn.in_proj_weight"] = np.concatenate(
+        [_np(p[n]["kernel"]).T for n in ("attn_q", "attn_k", "attn_v")])
+    sd[f"{prefix}.self_attn.in_proj_bias"] = np.concatenate(
+        [_np(p[n]["bias"]) for n in ("attn_q", "attn_k", "attn_v")])
+    _lin(sd, f"{prefix}.self_attn.out_proj", p["attn_out"])
+    _lin(sd, f"{prefix}.linear1", p["mlp_in"])
+    _lin(sd, f"{prefix}.linear2", p["mlp_out"])
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    _ln(sd, f"{prefix}.norm2", p["norm2"])
+
+
+def _stream_fusion(sd, prefix, p):
+    i = 1
+    while f"pe{i}" in p:
+        pe = p[f"pe{i}"]
+        sd[f"{prefix}.positionEncoding{i}.position_embeddings.weight"] = \
+            _np(pe["position_embeddings"])
+        _ln(sd, f"{prefix}.positionEncoding{i}.LayerNorm", pe["LayerNorm_0"])
+        i += 1
+    for name, layer in p["encoder"].items():
+        _encoder_layer(sd, f"{prefix}.transformer_encoder.layers."
+                       f"{name[len('layer'):]}", layer)
+    _lin(sd, f"{prefix}.f1", p["fuse_proj"])
+
+
+def mfm_state_dict_from_jax(variables: dict, cfg: Config
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``MFMTeacher`` variables (numpy leaves) → the reference
+    ``ThreeTRXShiftLoopTime`` state dict, which is the port's
+    ``MFMTeacher`` layout: ``three_fusion.*`` and ``fusion.*``
+    (``positionEncoding{i}``, ``transformer_encoder.layers.{l}``, ``f1``)
+    and ``bracnch.transformers.{i}.*``, one TCT per ``temp_set`` entry in
+    ``temp_set`` order. Key for key what ``export_mfm_checkpoint`` writes."""
+    params = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+    _stream_fusion(sd, "three_fusion", params["three_fusion"])
+    _stream_fusion(sd, "fusion", params["fusion"])
+    out = _tensors(sd)
+    t = params["branch"]["transformers"]
+    for i, s in enumerate(cfg.model.temp_set):
+        out.update({f"bracnch.transformers.{i}.{k}": v for k, v in
+                    tct_state_dict_from_jax(
+                        t[f"tct_{s}"], cfg.model.trans_linear_in_dim,
+                        int(1.5 * cfg.episode.seq_len)).items()})
+    return out
+
+
+def load_reference_mfm_state_dict(path: str, cfg: Config
+                                  ) -> Dict[str, torch.Tensor]:
+    """A ``ThreeTRXShiftLoopTime`` ``.pt`` (the reference's, one that
+    ``export_mfm_checkpoint`` wrote, or the port's own) as a state dict for
+    the port's ``MFMTeacher``, after the geometry guards of the JAX
+    package's ``load_mfm_checkpoint`` (``torch_import.py:299-339``): a file
+    with more encoder layers than ``trans_num``, another number of frames
+    than ``seq_len`` or more TCT sets than ``temp_set`` raises, instead of
+    loading a truncated teacher."""
+    sd = load_reference_state_dict(path)
+    depth = cfg.model.trans_num
+    for prefix in ("three_fusion", "fusion"):
+        if (f"{prefix}.transformer_encoder.layers.{depth}."
+                "self_attn.in_proj_weight") in sd:
+            raise ValueError(
+                f"{path}: {prefix} has more encoder layers than "
+                f"trans_num={depth}; pass --trans_num matching the trained "
+                "teacher")
+        pe = sd[f"{prefix}.positionEncoding1.position_embeddings.weight"]
+        if pe.shape[0] != cfg.episode.seq_len:
+            raise ValueError(
+                f"{path}: {prefix} positional table has {pe.shape[0]} frames "
+                f"but seq_len={cfg.episode.seq_len}")
+    n_sets = len(cfg.model.temp_set)
+    if f"bracnch.transformers.{n_sets}.k_linear.weight" in sd:
+        raise ValueError(
+            f"{path}: checkpoint has more TCT sets than temp_set="
+            f"{cfg.model.temp_set}; pass --temp_set matching the trained "
+            "teacher")
+    return sd

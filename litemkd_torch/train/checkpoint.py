@@ -3,12 +3,14 @@
 what the reference's ``torch.save`` wrote, ``trainwandb.py:172-180``).
 
 One file per save, ``checkpoint_<episodes>.pt`` in the run's directory:
-``{"iteration": episodes seen, "model_state_dict": the student in the
-reference key layout, "optimizer", "scheduler"}`` plus what a resume needs
-(``step``, ``episodes_seen``, ``teacher_state_dict``, and the states of the
-dropout generators). The newest ``max_to_keep`` files are kept. The run's
-``config.json`` lies beside them, so ``litemkd_torch.cli.test -m
-<file>`` reads its geometry from there.
+``{"iteration": episodes seen, "model_state_dict": the trained model (the
+student, or the MFM teacher) in the reference key layout, "optimizer",
+"scheduler"}`` plus what a resume needs (``step``, ``episodes_seen``, the
+state of the dropout generator, and for a student run
+``teacher_state_dict`` and the teacher's generator). The newest
+``max_to_keep`` files are kept. The run's ``config.json`` lies beside them,
+so ``litemkd_torch.cli.test -m <file>`` (or ``train_teacher --test_only
+-m <file>``) reads its geometry from there.
 """
 from __future__ import annotations
 
@@ -54,9 +56,10 @@ class CheckpointManager:
             "step": state.step,
             "episodes_seen": state.episodes_seen,
             "generator": state.generator.get_state(),
-            "teacher_generator": state.teacher_generator.get_state(),
-            "teacher_state_dict": _cpu(state.teacher.state_dict()),
         }
+        if state.teacher is not None:
+            payload["teacher_generator"] = state.teacher_generator.get_state()
+            payload["teacher_state_dict"] = _cpu(state.teacher.state_dict())
         path = self.path(state.episodes_seen)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -79,8 +82,10 @@ class CheckpointManager:
         state.step = int(ckpt["step"])
         state.episodes_seen = int(ckpt["episodes_seen"])
         state.generator.set_state(ckpt["generator"].cpu())
-        state.teacher_generator.set_state(ckpt["teacher_generator"].cpu())
-        state.teacher.load_state_dict(ckpt["teacher_state_dict"], strict=True)
+        if state.teacher is not None:
+            state.teacher_generator.set_state(ckpt["teacher_generator"].cpu())
+            state.teacher.load_state_dict(ckpt["teacher_state_dict"],
+                                          strict=True)
         return state
 
 

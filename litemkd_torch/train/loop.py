@@ -29,22 +29,27 @@ from .steps import (EpisodeBatch, TrainState, create_train_state,
                     make_eval_step, make_train_step)
 
 
+def move_to_device(x, device: torch.device):
+    """A numpy array, a dict of them, or None → tensors on ``device``; CUDA
+    copies go from pinned host memory without blocking the host. int32
+    becomes int64."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: move_to_device(v, device) for k, v in x.items()}
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if t.dtype == torch.int32:
+        t = t.long()
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def to_device(batch: EpisodeBatch, device: torch.device) -> EpisodeBatch:
-    """numpy batch → tensors on ``device``; CUDA copies go from pinned host
-    memory without blocking the host. Integer labels become int64."""
-    device = torch.device(device)
-
-    def move(x):
-        if x is None:
-            return None
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if t.dtype == torch.int32:
-            t = t.long()
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-
-    return EpisodeBatch(*(move(x) for x in batch))
+    """numpy batch → tensors on ``device`` (:func:`move_to_device`); a
+    field that is a dict (the MFM's per-modality features) moves entry by
+    entry."""
+    return EpisodeBatch(*(move_to_device(x, device) for x in batch))
 
 
 def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
@@ -53,9 +58,10 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
              device: Optional[torch.device] = None) -> dict:
     """Episodic evaluation: mean accuracy ×100 with the 196·std/√n CI.
 
-    ``model`` is an eval-mode ``BatchedStudent``; ``device`` defaults to the
-    device of its parameters. ``eval_step(model, batch) → (E,)``
-    accuracies defaults to :func:`make_eval_step`."""
+    ``model`` is an eval-mode ``BatchedStudent``, or an ``MFMTeacher`` with
+    the MFM eval step; ``device`` defaults to the device of its parameters.
+    ``eval_step(model, batch) → (E,)`` accuracies defaults to
+    :func:`make_eval_step`."""
     n_tasks = n_tasks or cfg.train.num_test_tasks
     eval_step = eval_step or make_eval_step(cfg)
     device = device or next(model.parameters()).device
@@ -95,15 +101,31 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
     evaluated (eval mode, seed 0, ``num_test_tasks`` episodes) through
     :func:`run_eval`. ``device`` defaults to cuda."""
     device = torch.device(device or "cuda")
+    state = create_train_state(cfg, device,
+                               student_state_dict=student_state_dict,
+                               teacher_state_dict=teacher_state_dict,
+                               episodes_per_step=cfg.train.tasks_per_batch)
+    history = train_loop(cfg, state, sampler, make_train_step(cfg),
+                         make_eval_step(cfg), logger, device=device,
+                         eval_sampler=eval_sampler)
+    return state, history
+
+
+def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
+               eval_step: Callable, logger: Optional[MetricsLogger] = None, *,
+               device, eval_sampler=None) -> List[dict]:
+    """The training loop that the student and the MFM teacher share:
+    ``train_step(state, batch)`` on batches of ``tasks_per_batch`` episodes
+    until ``cfg.train.training_iterations`` episodes, evaluation at each of
+    ``test_iters`` through :func:`run_eval` with ``eval_step`` (eval mode,
+    seed 0, ``num_test_tasks`` episodes), and checkpoints (every
+    ``save_freq`` episodes and at the end) when ``cfg.train.checkpoint_dir``
+    is set; with ``resume_from_checkpoint`` the newest one is restored into
+    ``state`` first. Returns the eval history."""
     logger = logger or MetricsLogger(print_freq=cfg.train.print_freq)
     eval_sampler = eval_sampler or sampler
     e_per_step = cfg.train.tasks_per_batch
     n_steps = max(1, cfg.train.training_iterations // e_per_step)
-
-    state = create_train_state(cfg, device,
-                               student_state_dict=student_state_dict,
-                               teacher_state_dict=teacher_state_dict,
-                               episodes_per_step=e_per_step)
     ckpt = None
     if cfg.train.checkpoint_dir:
         ckpt = CheckpointManager(cfg.train.checkpoint_dir)
@@ -111,8 +133,6 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
             ckpt.restore(state)
             logger.info(f"resumed at {state.episodes_seen} episodes")
 
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_step(cfg)
     test_marks = sorted(m for m in cfg.train.test_iters
                         if m > state.episodes_seen)
     save_every = max(1, cfg.train.save_freq // e_per_step)
@@ -159,4 +179,4 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
     flush()
     if ckpt:
         ckpt.save(state)
-    return state, eval_history
+    return eval_history

@@ -46,17 +46,20 @@ class EpisodeBatch(NamedTuple):
 class TrainState:
     """What a training run carries from step to step (the counterpart of
     the JAX package's ``TrainState``): the update count, the episodes seen,
-    the student and the frozen teacher, the optimizer and its schedule, and
-    the generators that draw the student's and the teacher's dropout masks."""
+    the trained model and, for the student, the frozen teacher, the
+    optimizer and its schedule, and the generators that draw the model's
+    and the teacher's dropout masks. A run without a teacher (the MFM
+    teacher's own training) has ``teacher`` and ``teacher_generator``
+    None."""
 
     step: int
     episodes_seen: int
-    model: BatchedStudent
-    teacher: BatchedTeacher
+    model: torch.nn.Module
+    teacher: Optional[BatchedTeacher]
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     generator: torch.Generator
-    teacher_generator: torch.Generator
+    teacher_generator: Optional[torch.Generator]
 
 
 def create_train_state(cfg: Config, device, *,

@@ -34,6 +34,7 @@ def _inputs(seed, device, e, q, u, dk, w, s):
 @pytest.mark.parametrize("e,q,u,dk,w,s,group", [
     (8, 5, 28, 1152, 5, 5, None),     # eval chunk at the flagship width
     (4, 25, 28, 1152, 5, 5, None),    # training micro-batch
+    (16, 25, 28, 1152, 5, 5, None),   # MFM training step: 16 episodes, one launch
     (2, 3, 28, 100, 130, 1, None),    # ragged dk, W past 128
     (3, 11, 6, 128, 3, 2, None),
     (1, 1, 56, 64, 2, 5, None),       # U=56 (temp set 3)
@@ -230,6 +231,7 @@ def test_batch_norm_train_matches_cpu(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,q,u,dk,w,s", [
     (4, 25, 28, 1152, 5, 5),    # training micro-batch at the flagship width
+    (16, 25, 28, 1152, 5, 5),   # MFM training step
     (2, 3, 28, 100, 130, 1),
 ])
 def test_tct_function_gradients_match_plain(cuda_device, e, q, u, dk, w, s):
@@ -293,3 +295,71 @@ def test_train_step_on_card_matches_cpu_and_counts_launches(cuda_device):
             continue
         assert (p.grad.cpu() - grads[name]).abs().max().item() <= 1e-3 * g_max, name
     assert sum(n.startswith("classifier.transformers.") for n in grads) == 6
+
+
+def _mfm_tiny(cuda_device):
+    """A tiny fp32 MFM teacher (dropout 0) on the CPU and its copy on the
+    card, and one synthetic 2-episode batch."""
+    import copy
+    import dataclasses
+    from litemkd_torch.cli.train_teacher import SyntheticMultiModalSource
+    from litemkd_torch.train import create_mfm_train_state
+    base = preset("tiny")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, compute_dtype="float32", trans_dropout=0.0))
+    batch = SyntheticMultiModalSource(cfg, seed=1).sample_batch(
+        np.random.default_rng(0), cfg.train.tasks_per_batch)
+    cpu = create_mfm_train_state(cfg, "cpu")
+    gpu = create_mfm_train_state(cfg, cuda_device,
+                                 state_dict=copy.deepcopy(cpu.model.state_dict()))
+    return cfg, batch, cpu, gpu
+
+
+@pytest.mark.cuda
+def test_mfm_forward_and_extract_on_card_match_cpu(cuda_device):
+    """The tiny MFM teacher's logits (one TCT launch for both episodes) and
+    its extracted features (no launch) on the card equal the CPU's within
+    1e-4·max."""
+    from litemkd_torch.train import to_device
+    _, batch, cpu, gpu = _mfm_tiny(cuda_device)
+    out = {}
+    for state, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        b = to_device(batch, dev)
+        model = state.model.eval()
+        with torch.inference_mode():
+            before = ta.tct_attention.launches
+            logits = model(b.support_clips, b.support_labels, b.query_clips)
+            mid = ta.tct_attention.launches
+            feats = model.extract(b.query_clips)
+            after = ta.tct_attention.launches
+        out[str(dev)] = (logits["logits"].cpu(), feats.cpu(), mid - before,
+                         after - mid)
+    (lc, fc, _, _), (lg, fg, n_fwd, n_ext) = out["cpu"], out[str(cuda_device)]
+    assert (n_fwd, n_ext) == (1, 0)
+    assert (lg - lc).abs().max().item() <= 1e-4 * lc.abs().max().item()
+    assert (fg - fc).abs().max().item() <= 1e-4 * fc.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_mfm_train_step_on_card_matches_cpu(cuda_device):
+    """One tiny MFM train step launches the TCT kernel once on the card;
+    its metrics match the CPU's (1e-4 relative) and every gradient is
+    within 1e-3·max|g| of the CPU's."""
+    from litemkd_torch.train import make_mfm_train_step, to_device
+    cfg, batch, cpu, gpu = _mfm_tiny(cuda_device)
+    step = make_mfm_train_step(cfg)
+    m_cpu = step(cpu, to_device(batch, torch.device("cpu")))
+    before = ta.tct_attention.launches
+    m_gpu = step(gpu, to_device(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert ta.tct_attention.launches == before + 1
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-6, k
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()
+             if p.grad is not None}
+    g_max = max(g.abs().max().item() for g in grads.values())
+    for name, p in gpu.model.named_parameters():
+        if name not in grads:
+            assert p.grad is None, name
+            continue
+        assert (p.grad.cpu() - grads[name]).abs().max().item() <= 1e-3 * g_max, name

@@ -129,6 +129,9 @@ def test_config_json_round_trips_between_packages():
      "--trans_linear_out_dim", "16", "--model_backbone", "resnet34_2fc",
      "--model_classifier", "TRX"],
     ["-m", "{dir}/student.pt", "--num_test_tasks", "7"],
+    ["--preset", "mfm_teacher", "--dataset", "hmdb", "--split", "1",
+     "--traintestlist", "{dir}/splits"],
+    ["--preset", "student_fc2sup_dist", "--dataset", "ucf"],
 ])
 def test_cli_config_equals_jax(argv, tmp_path):
     """The port's eval flags build the config that the JAX package's

@@ -154,6 +154,7 @@ def test_split_tf32_matches_xla_at_flagship_width(q, seed):
 @pytest.mark.parametrize("e,q,w,n_sm,want", [
     (8, 5, 5, 132, 1),      # eval chunk: 200 blocks at G=1, 120 at G=2
     (4, 25, 5, 132, 2),     # training micro-batch: 260 blocks, one wave
+    (16, 25, 5, 132, 2),    # MFM training step: 1,040 blocks, 4 waves
     (1, 3, 5, 132, 1),      # Q smaller than the largest G
     (1, 1, 5, 132, 1),      # one query
     (64, 25, 5, 132, 4),    # many waves: the class tile's reads dominate
