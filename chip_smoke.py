@@ -38,31 +38,49 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    ``--test_only``, and the whole tree through
    ``litemkd_torch.cli.extract.main``; then the device-resident training
    step, eval chunk and extraction rates, peak memory, and one training
-   step under the profiler.
+   step under the profiler;
+7. real video data: a JPEG frame tree (320×240, 8-10 frames a video) with
+   the class and video names of phase 6's tree, written with PIL; the
+   full-width student trained from it with the BN kernels (2 steps of 16
+   episodes, an 8-episode eval) through ``litemkd_torch.cli.train.main``
+   against the fused features phase 6 extracted, with the launch counts
+   read around it and the clip decoder that ran (the C++ one where it
+   builds, PIL otherwise); its checkpoint through
+   ``litemkd_torch.cli.test.main`` over a fixed-episode file of
+   ``litemkd_torch.cli.gen_fixed_split``, twice (6 episodes, not the 8 of
+   the checkpoint's config, the same batches and accuracies both times),
+   and once without it (6 other episodes from the same seed); then the
+   host's decode rates on 1, 4 and all cores, the host seconds of one
+   16-episode batch and of its pinned copy to the card.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 import copy
 import dataclasses
+import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from litemkd_torch import preset
 from litemkd_torch.cli import extract as cli_extract
+from litemkd_torch.cli import gen_fixed_split as cli_gen
 from litemkd_torch.cli import test as cli_test
 from litemkd_torch.cli import train as cli_train
 from litemkd_torch.cli import train_teacher as cli_teacher
 from litemkd_torch.cli.common import build_sampler
-from litemkd_torch.data import SyntheticEpisodeSource
+from litemkd_torch.data import SyntheticEpisodeSource, VideoStore
 from litemkd_torch.distill import merge_logits
 from litemkd_torch.ops import _build
 from litemkd_torch.ops import batch_norm as bn
@@ -673,8 +691,8 @@ def train_main_path(card, run_root):
     n_eps = TRAIN_STEPS * TRAIN_EPISODES
     log(f"[train] CLI training on {card}: {n_eps / wall:.3f} episodes/s end to "
         f"end ({wall:.2f} s for {n_eps} training + {EVAL_TASKS} eval episodes; "
-        f"host synthetic draws {draw[0]:.2f} s, "
-        f"{n_eps / (wall - draw[0]):.3f} episodes/s without them); peak memory "
+        f"host synthetic draws {draw[0]:.2f} s on the prefetch thread, beside "
+        f"the steps); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     ckpt = ckdir / f"checkpoint_{n_eps}.pt"
     summary = cli_test.main(["-m", str(ckpt), "--num_test_tasks", "8",
@@ -1046,6 +1064,223 @@ def mfm_device_rate(card, run_root):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Real video data: the student trained from a JPEG frame tree
+# ---------------------------------------------------------------------------
+
+FRAME_SIZE = (320, 240)   # HMDB's frames (W, H): the shorter-side resize to 256 works
+JPEG_QUALITY = 90
+VIDEO_PRESET = "student_fc2sup_dist"
+REPLAY_TASKS = 6   # not the checkpoint's num_test_tasks: n_tasks shows the file was read
+VIDEO_ARGV = ["--preset", VIDEO_PRESET, "--pallas_bn", "--dataset", "hmdb",
+              "--training_iterations", str(TRAIN_EPISODES * TRAIN_STEPS),
+              "--test_iters", str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks",
+              str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda"]
+
+
+def batch_digest(batch):
+    """A digest of every array of an EpisodeBatch."""
+    h = hashlib.blake2b(digest_size=16)
+    for x in batch:
+        if x is not None:
+            h.update(np.ascontiguousarray(x).view(np.uint8))
+    return h.hexdigest()
+
+
+def _write_video(vdir, pattern, n_frames, seed):
+    """``n_frames`` JPEGs of the class ``pattern`` plus seeded noise."""
+    rng = np.random.default_rng(seed)
+    vdir.mkdir(parents=True)
+    for f in range(n_frames):
+        frame = pattern + rng.normal(0.0, 12.0, pattern.shape)
+        Image.fromarray(np.clip(frame, 0, 255).astype(np.uint8)).save(
+            vdir / f"{f:05d}.jpg", quality=JPEG_QUALITY)
+
+
+def write_jpeg_tree(root, like, seed=0):
+    """A frame tree ``root/<class>/<video>/<frame>.jpg`` with the class and
+    video names of the tree ``like``: 8, 9 or 10 frames a video of 320×240
+    at JPEG quality 90, each class a smooth seeded colour pattern (an 8×6
+    grid resized bilinearly) plus noise, so that decoded clips differ by
+    class. Written by a thread pool; returns (videos, frames, bytes)."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for c, cdir in enumerate(sorted(p for p in like.iterdir() if p.is_dir())):
+        grid = rng.uniform(30, 225, (6, 8, 3)).astype(np.uint8)
+        pattern = np.asarray(Image.fromarray(grid).resize(FRAME_SIZE, Image.BILINEAR),
+                             np.float32)
+        for v, vdir in enumerate(sorted(p for p in cdir.iterdir() if p.is_dir())):
+            jobs.append((root / cdir.name / vdir.name, pattern, 8 + v % 3,
+                         (seed, c, v)))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda j: _write_video(*j), jobs))
+    files = list(root.rglob("*.jpg"))
+    return len(jobs), len(files), sum(f.stat().st_size for f in files)
+
+
+def host_decode_rates(frames, splits, label):
+    """Clips and frames per second of ``VideoStore.load`` (training
+    augmentation, 8 frames of 224 px) with the C++ decoder (where it is
+    built) and with PIL, on 1, 4 and ``os.cpu_count()`` threads."""
+    from litemkd_torch import native
+    decoders = ([True] if native.available() else []) + [False]
+    for use_native in decoders:
+        store = VideoStore(str(frames), str(splits), 3, 8, 224, use_native=use_native)
+        recs = [r for c in store.split(True).classes()
+                for r in store.split(True).videos_for_class(c)]
+        for workers in sorted({1, 4, os.cpu_count()}):
+            n = 24 * workers
+            jobs = [(recs[i % len(recs)], i) for i in range(n)]
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                t0 = time.perf_counter()
+                clips = list(pool.map(lambda j: store.load(
+                    j[0], True, np.random.default_rng(j[1])), jobs))
+                dt = time.perf_counter() - t0
+            n_frames = sum(c.shape[0] for c in clips)
+            log(f"[video] host decode, {'C++' if use_native else 'PIL'}, {workers} "
+                f"thread(s) of os.cpu_count()={os.cpu_count()}: {n / dt:.3f} clips/s, "
+                f"{n_frames / dt:.3f} frames/s ({n} clips of 8 frames, 320x240 JPEG "
+                f"→ 224 px, in {dt:.3f} s); host of {label}")
+
+
+def video_main_path(label, run_root):
+    """Full-width student training from a JPEG tree through ``cli.train``
+    against the fused features phase 6 extracted, with the launch counts
+    read around it and the decoder that ran; its checkpoint through
+    ``cli.test`` over a ``cli.gen_fixed_split`` file twice (the file's
+    count, the same batches and accuracies) and without it (other
+    episodes); then the host's decode rates, the host seconds of a
+    16-episode batch and its pinned copy to the card. Returns the training
+    run's launch counts."""
+    from litemkd_torch import native
+    from litemkd_torch.data import EpisodeSampler
+    from litemkd_torch.data import video as video_mod
+    frames, fused, splits = run_root / "frames", run_root / "fused", run_root / "tree" / "splits"
+    ckdir, fixed = run_root / "video_run", run_root / "fixed_test.json"
+    t0 = time.perf_counter()
+    n_videos, n_frames, n_bytes = write_jpeg_tree(frames, fused)
+    log(f"[video] JPEG tree: {n_videos} videos, {n_frames} frames of "
+        f"{FRAME_SIZE[0]}x{FRAME_SIZE[1]} at quality {JPEG_QUALITY}, "
+        f"{n_bytes / 1e6:.1f} MB, written in {time.perf_counter() - t0:.2f} s")
+    built = native.available()
+    log(f"[video] C++ clip decoder {'built' if built else 'not built on this machine'}"
+        f"; {'it' if built else 'PIL'} decodes the clips")
+    data = ["--rgb_path", str(frames), "--traintestlist", str(splits)]
+    draw = [0.0]
+    sample_batch = EpisodeSampler.sample_batch
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        out = sample_batch(self, *a, **k)
+        draw[0] += time.perf_counter() - t
+        return out
+
+    EpisodeSampler.sample_batch = timed
+    video_mod.decoders_used.clear()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        _, history = cli_train.main(VIDEO_ARGV + data + ["--teacher_path", str(fused),
+                                                         "-c", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        EpisodeSampler.sample_batch = sample_batch
+    cfg = cli_train.parse(VIDEO_ARGV + data)[1]
+    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    want = dict(tct_attention=3 * chunks + 2 * math.ceil(EVAL_TASKS / 8),
+                bn_sums=20 * chunks, bn_bwd_sums=20 * chunks)
+    ran = sorted(video_mod.decoders_used)
+    log(f"[video] training launches {counts}, expected {want}; decoder that ran: {ran}")
+    if counts != want:
+        raise AssertionError(f"real-data launch counts {counts} != {want}")
+    if ran != ["native" if built else "pil"]:
+        raise AssertionError(f"decoders {ran} ran; the C++ decoder is "
+                             f"{'built' if built else 'not built'}")
+    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
+               for line in f.read_text().splitlines()]
+    steps = [r for r in records if "task_loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            math.isfinite(r[k]) for r in steps for k in r):
+        raise AssertionError(f"bad real-data training metrics {steps}")
+    if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
+        raise AssertionError(f"bad real-data mid-training eval {history}")
+    log("[video] per-step metrics: " + json.dumps(
+        [{k: r[k] for k in ("step", "task_loss", "soft_loss", "hard_loss", "accuracy")}
+         for r in steps]) + f"; eval {history[0]}")
+    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    log(f"[video] CLI training from the JPEG tree on {label}: {n_eps / wall:.3f} "
+        f"episodes/s end to end ({wall:.2f} s for {n_eps} training + {EVAL_TASKS} "
+        f"eval episodes, model set-up and checkpoint write included; host batch "
+        f"assembly {draw[0]:.2f} s on the prefetch thread, "
+        f"{cfg.data.num_workers} decode threads)")
+
+    cli_gen.main(["--preset", VIDEO_PRESET, "--dataset", "hmdb", "--n_episodes",
+                  str(REPLAY_TASKS), "--out", str(fixed)] + data)
+    ckpt = ckdir / f"checkpoint_{n_eps}.pt"
+
+    def evaluate(extra):
+        """``cli.test`` of the checkpoint; returns its summary and the
+        digests of the episode batches it drew."""
+        digests = []
+
+        def recorded(self, *a, **k):
+            out = sample_batch(self, *a, **k)
+            digests.append(batch_digest(out))
+            return out
+
+        EpisodeSampler.sample_batch = recorded
+        try:
+            zero_counts()
+            summary = cli_test.main(["-m", str(ckpt), "--device", "cuda"] + data + extra)
+        finally:
+            EpisodeSampler.sample_batch = sample_batch
+        if read_counts()["tct_attention"] != 2 * math.ceil(REPLAY_TASKS / 8):
+            raise AssertionError(f"eval launches {read_counts()}")
+        return summary, digests
+
+    # the file's episodes twice, then as many episodes drawn from the eval
+    # seed: a run that ignored the file would draw those
+    replays = [evaluate(["--fixed_episode_file", str(fixed)]) for _ in range(2)]
+    drawn = evaluate(["--num_test_tasks", str(REPLAY_TASKS)])
+    log(f"[video] {ckpt.name} through the eval CLI over {fixed.name} "
+        f"({REPLAY_TASKS} episodes; the checkpoint's num_test_tasks is "
+        f"{EVAL_TASKS}) twice, then without the file: {replays + [drawn]}")
+    if replays[0] != replays[1] or replays[0][0]["n_tasks"] != REPLAY_TASKS or \
+            not math.isfinite(replays[0][0]["accuracy"]):
+        raise AssertionError(f"fixed-episode replays differ: {replays}")
+    if drawn[1] == replays[0][1]:
+        raise AssertionError("the eval without the file drew the file's episodes")
+    torch.cuda.empty_cache()
+
+    host_decode_rates(frames, splits, label)
+    stores = build_sampler(cli_train.parse(VIDEO_ARGV + data + [
+        "--teacher_path", str(fused)])[1])
+    for workers in sorted({cfg.data.num_workers, os.cpu_count()}):
+        sampler = EpisodeSampler(cfg, stores.videos, stores.features,
+                                 num_workers=workers)
+        t0 = time.perf_counter()
+        batch = sampler.sample_batch(np.random.default_rng(workers), TRAIN_EPISODES)
+        dt = time.perf_counter() - t0
+        sampler.pool.shutdown()
+        n_frames = sum(x.shape[0] * x.shape[1] * x.shape[2]
+                       for x in (batch.support_clips, batch.query_clips))
+        log(f"[video] host sample_batch of {TRAIN_EPISODES} episodes "
+            f"({n_frames} frames) on {workers} threads: {dt:.3f} s; host of {label}")
+    n_bytes = sum(x.nbytes for x in batch if x is not None)
+    for i in range(2):
+        t0 = time.perf_counter()
+        on_card = to_device(batch, torch.device("cuda"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[video] pinned copy of one batch to the card ({'first' if i == 0 else 'again'}): "
+            f"{n_bytes / 1e6:.1f} MB in {dt:.3f} s ({n_bytes / dt / 1e9:.2f} GB/s); {label}")
+        del on_card
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1113,6 +1348,9 @@ def main():
     try:
         mfm_counts = mfm_main_path(card, run_root)
         mfm_device_rate(card, run_root)
+        # 7. real video data: the student from a JPEG tree against the
+        # fused features that phase 6 extracted
+        video_counts = video_main_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     t = tct_times["mfm_train"]
@@ -1124,15 +1362,18 @@ def main():
         dict(name="tct_attention", route="cuda",
              source="litemkd_torch/csrc/tct_attention.cu",
              replaces="litemkd_tpu/ops/pallas_tct.py:61",
-             launches=counts["tct_attention"] + mfm_counts["tct_attention"],
+             launches=(counts["tct_attention"] + mfm_counts["tct_attention"]
+                       + video_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
-             launches=counts["bn_sums"], max_abs_err=bn_err, **bn_times["sums"]),
+             launches=counts["bn_sums"] + video_counts["bn_sums"],
+             max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:103",
-             launches=counts["bn_bwd_sums"], max_abs_err=bn_err,
+             launches=counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"],
+             max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

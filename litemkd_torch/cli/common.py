@@ -1,10 +1,10 @@
 """Shared CLI plumbing of the port: the flags that its eval, training,
 MFM-teacher and extraction paths read, copied from
-``litemkd_tpu/cli/common.py:67-324`` and the JAX package's
+``litemkd_tpu/cli/common.py:67-378`` and the JAX package's
 ``train_teacher``/``extract`` CLIs (same names, same mapping onto the typed
-Config), plus ``--device`` and the sampler and device choice. Flags of
-paths the port does not have yet (video trees, meshes, teacher eval) come
-with those paths.
+Config), plus ``--device``, the sampler, fixed-episode files and the device
+choice. Flags of paths the port does not have yet (meshes, teacher eval,
+per-task logs) come with those paths.
 """
 from __future__ import annotations
 
@@ -60,9 +60,32 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    default=None)
     p.add_argument("--split", type=int, default=None)
     p.add_argument("--traintestlist", default=None)
+    p.add_argument("--rgb_path", "--RGB_path", dest="rgb_path", default=None,
+                   help="frame tree <class>/<video>/<frame>.jpg (or a .zip)")
+    p.add_argument("--teacher_path", default=None,
+                   help="fused teacher feature tree "
+                        "<class>/<video>/feature.npy")
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="threads that load the clips of an episode")
+    p.add_argument("--fixed_episode_file", default=None,
+                   help="replay the test episodes of this file "
+                        "(cli.gen_fixed_split, or the reference's "
+                        "fixed_test JSON/YAML)")
     p.add_argument("--synthetic_noise", type=float, default=None,
                    help="synthetic-dataset difficulty (noise scale around "
                         "the class prototypes; default 0.3)")
+    # multi-camera datasets (reference run.py:142-146)
+    p.add_argument("--cross_view", action="store_true", default=None,
+                   help="support clips from a random camera view, queries "
+                        "from --view")
+    p.add_argument("--view", type=int, default=None,
+                   help="query camera index into sorted(view_root) for "
+                        "--cross_view")
+    p.add_argument("--fixed_view", default=None,
+                   help="pin every clip to one named camera view")
+    p.add_argument("--view_root", default=None,
+                   help="all_view_rgb_l8-style tree (default: sibling of "
+                        "rgb_path)")
     p.add_argument("--mode", default=None, help="experiment description tag")
     p.add_argument("--num_test_tasks", type=int, default=None)
 
@@ -206,9 +229,17 @@ def build_config(args: argparse.Namespace,
         dc, dataset=dataset, split=pick(dc.split, args.split),
         traintestlist=(args.traintestlist or dc.traintestlist
                        or paths["traintestlist"]),
-        rgb_path=dc.rgb_path or paths["rgb_path"],
-        teacher_path=dc.teacher_path or paths["teacher_path"],
-        synthetic_noise=pick(dc.synthetic_noise, args.synthetic_noise)))
+        rgb_path=args.rgb_path or dc.rgb_path or paths["rgb_path"],
+        teacher_path=(args.teacher_path or dc.teacher_path
+                      or paths["teacher_path"]),
+        num_workers=pick(dc.num_workers, args.num_workers),
+        fixed_episode_file=pick(dc.fixed_episode_file,
+                                args.fixed_episode_file),
+        synthetic_noise=pick(dc.synthetic_noise, args.synthetic_noise),
+        cross_view=pick(dc.cross_view, args.cross_view),
+        query_view=pick(dc.query_view, args.view),
+        fixed_view=pick(dc.fixed_view, args.fixed_view),
+        view_root=pick(dc.view_root, args.view_root)))
     if args.mode:
         cfg = cfg.replace(mode=args.mode)
     t = cfg.train
@@ -273,15 +304,63 @@ def set_fp32_math() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def episode_index(sampler, train: bool = False):
+    """The split index behind any sampler: video-backed (``videos``),
+    feature-backed (``features``), multi-modal (``store``), or synthetic
+    (its nominal ``split()``, keyed on (class, video index), so that fixed
+    episodes replay exactly)."""
+    store = (getattr(sampler, "videos", None)
+             or getattr(sampler, "features", None)
+             or getattr(sampler, "store", None))
+    return (store if store is not None else sampler).split(train)
+
+
+def load_fixed_specs(cfg: Config, sampler):
+    """The episodes of ``cfg.data.fixed_episode_file`` (None without one):
+    a native JSON file of ``cli.gen_fixed_split``, or the reference's
+    ``fixed_test`` schema (YAML, or JSON that is not the native form),
+    converted against the sampler's test index."""
+    path = cfg.data.fixed_episode_file
+    if not path:
+        return None
+    from ..data import load_fixed_episodes, load_reference_fixed_episodes
+    if path.endswith((".yaml", ".yml")):
+        specs = load_reference_fixed_episodes(path, episode_index(sampler))
+    else:
+        try:
+            specs = load_fixed_episodes(path)
+        except (KeyError, TypeError, AttributeError):
+            specs = load_reference_fixed_episodes(path, episode_index(sampler))
+    print(f"replaying {len(specs)} fixed episodes")
+    return specs
+
+
 def build_sampler(cfg: Config, need_teacher: bool = True):
-    """Construct the episode sampler for the configured dataset. Only the
-    synthetic source is ported; real video trees need the native clip
-    decoder, which the port does not have yet."""
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r}: the port reads only "
-            "--dataset synthetic so far")
-    from ..data import SyntheticEpisodeSource
-    return SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
-                                  noise=cfg.data.synthetic_noise,
-                                  with_teacher_feats=need_teacher)
+    """The episode sampler of the configured dataset: the synthetic source,
+    or an :class:`EpisodeSampler` over the frame tree ``rgb_path`` (with a
+    multi-view tree for ``cross_view``/``fixed_view``, by default the
+    ``all_view_rgb_l8`` sibling of ``rgb_path``) and, with
+    ``need_teacher``, the fused feature tree ``teacher_path``."""
+    if cfg.data.dataset == "synthetic":
+        from ..data import SyntheticEpisodeSource
+        return SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
+                                      noise=cfg.data.synthetic_noise,
+                                      with_teacher_feats=need_teacher)
+    from ..data import EpisodeSampler, FeatureStore, VideoStore
+    video_store = feature_store = None
+    if cfg.data.rgb_path:
+        view_root = cfg.data.view_root
+        if view_root is None and (cfg.data.cross_view or cfg.data.fixed_view):
+            # the reference's derivation (video_reader.py:265)
+            view_root = os.path.join(os.path.dirname(
+                cfg.data.rgb_path.rstrip("/")), "all_view_rgb_l8")
+        video_store = VideoStore(cfg.data.rgb_path, cfg.data.traintestlist,
+                                 cfg.data.split, cfg.episode.seq_len,
+                                 cfg.episode.img_size, view_root=view_root)
+    if need_teacher and cfg.data.teacher_path:
+        feature_store = FeatureStore(cfg.data.teacher_path,
+                                     cfg.data.traintestlist, cfg.data.split,
+                                     cfg.episode.seq_len,
+                                     cfg.model.trans_linear_in_dim)
+    return EpisodeSampler(cfg, video_store, feature_store,
+                          num_workers=cfg.data.num_workers)

@@ -2,12 +2,17 @@
 reference's ``train_wandb.sh``):
 
     python -m litemkd_torch.cli.train --preset student_fc2sup_dist \\
-        --dataset synthetic --pallas_bn -c /path/ckpt
+        --pallas_bn --dataset hmdb --rgb_path FRAMES --traintestlist SPLITS \\
+        --teacher_path FUSED -c /path/ckpt
     python -m litemkd_torch.cli.train --preset tiny --device cpu -c /tmp/ck
 
-Runs on cuda unless ``--device`` says otherwise, with TF32 off in matrix
-products and convolutions (the bf16 trunk is unaffected). Only the
-synthetic dataset is ported. ``--teacher_checkpoint`` loads a
+``--rgb_path`` is a JPEG frame tree ``<class>/<video>/<frame>.jpg``, decoded
+on the host by ``--num_workers`` threads; ``--teacher_path`` is the fused
+feature tree that ``litemkd_torch.cli.extract --mode_extract mfm`` writes,
+paired with each video by class name and video id; ``--dataset synthetic``
+draws clips and features in memory instead. Runs on cuda unless
+``--device`` says otherwise, with TF32 off in matrix products and
+convolutions (the bf16 trunk is unaffected). ``--teacher_checkpoint`` loads a
 reference-layout teacher ``.pt`` and ``--init_checkpoint`` a
 reference-layout student ``.pt`` (strict); otherwise both get random
 weights from the seed. Checkpoints and ``config.json`` go to ``-c``; the

@@ -15,8 +15,9 @@ part of ``litemkd_tpu/cli/train_teacher.py:76-287``; the reference's
 JAX package's ``export_mfm_checkpoint`` wrote, or the reference's), loaded
 strictly, or a checkpoint directory of the port, whose newest checkpoint is
 restored whole; training then continues from it, or ``--test_only``
-evaluates it. Runs on cuda unless ``--device`` says otherwise, in fp32 with
-TF32 off. Checkpoints and ``config.json`` go to ``-c``.
+evaluates it (replaying ``--fixed_episode_file`` where one is given). Runs
+on cuda unless ``--device`` says otherwise, in fp32 with TF32 off.
+Checkpoints and ``config.json`` go to ``-c``.
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ from ..train import (CheckpointManager, EpisodeBatch, create_mfm_train_state,
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      add_train_args, apply_fusion_args, build_config,
-                     load_saved_config, resolve_device, save_run_config,
-                     set_fp32_math)
+                     load_fixed_specs, load_saved_config, resolve_device,
+                     save_run_config, set_fp32_math)
 
 
 class SyntheticMultiModalSource:
@@ -44,7 +45,8 @@ class SyntheticMultiModalSource:
     :class:`SyntheticEpisodeSource` per modality (seed + i), all drawing
     the same episode geometry from one seed a batch. Each source draws its
     frames too and they are thrown away, so one seed gives the JAX
-    package's batches."""
+    package's batches. ``specs`` go to every source, so that fixed
+    episodes replay in every modality."""
 
     def __init__(self, cfg, n_classes=16, seed=0, noise=0.3):
         self.cfg = cfg
@@ -53,10 +55,15 @@ class SyntheticMultiModalSource:
             with_teacher_feats=True)
             for i, m in enumerate(cfg.model.modalities)}
 
-    def sample_batch(self, rng, n_episodes, train=True) -> EpisodeBatch:
+    def split(self, train: bool = False):
+        """The nominal index that every modality's source shares."""
+        return next(iter(self.sources.values())).split(train)
+
+    def sample_batch(self, rng, n_episodes, train=True,
+                     specs=None) -> EpisodeBatch:
         seed = int(rng.integers(0, 2 ** 31))
         batches = {m: s.sample_batch(np.random.default_rng(seed), n_episodes,
-                                     train=train)
+                                     train=train, specs=specs)
                    for m, s in self.sources.items()}
         first = next(iter(batches.values()))
         return EpisodeBatch(
@@ -96,8 +103,6 @@ def parse(argv=None):
                    default=None, help="TSF logit weights (not ported)")
     p.add_argument("--branch_ckpt", action="append", default=None,
                    help="TSF branch grafting (not ported)")
-    p.add_argument("--fixed_episode_file", default=None,
-                   help="fixed-episode replay (not ported)")
     p.add_argument("--test_only", action="store_true",
                    help="evaluate the teacher given by -m and exit")
     p.add_argument("--test_model_path", "-m", default=None,
@@ -113,9 +118,6 @@ def _reject_unported(p, args, cfg) -> None:
         raise NotImplementedError(
             "--score_weights and --branch_ckpt belong to TSF score fusion, "
             "not ported yet (ROADMAP queue 6)")
-    if args.fixed_episode_file or cfg.data.fixed_episode_file:
-        raise NotImplementedError(
-            "fixed-episode replay is not ported yet (ROADMAP queue 3)")
     if cfg.data.dataset != "synthetic" and not args.feature_root:
         p.error("teacher training reads per-modality feature trees: pass "
                 "--feature_root (or --dataset synthetic for a smoke run)")
@@ -143,16 +145,18 @@ def main(argv=None):
     save_run_config(cfg)
     sampler = build_mm_sampler(cfg, args.feature_root)
     if path and os.path.isdir(path):
-        CheckpointManager(path).restore(state)
+        CheckpointManager(path).restore(state, cfg.train.seed)
         logger.info(f"restored {path} @{state.episodes_seen} episodes")
     elif path:
         logger.info(f"loaded MFM teacher {path}")
 
     eval_step = make_mfm_eval_step(cfg)
     if args.test_only:
+        specs = load_fixed_specs(cfg, sampler)
         s = run_eval(cfg, state.model.eval(), sampler,
-                     n_tasks=cfg.train.num_test_tasks, eval_step=eval_step,
-                     seed=cfg.train.seed, device=device)
+                     n_tasks=len(specs) if specs else cfg.train.num_test_tasks,
+                     eval_step=eval_step, seed=cfg.train.seed, device=device,
+                     specs=specs)
         print(f"{cfg.data.dataset}: {s['accuracy']:.2f} ± "
               f"{s['confidence']:.2f} over {s['n_tasks']} tasks")
         logger.close()

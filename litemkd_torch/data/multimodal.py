@@ -9,13 +9,13 @@ equal batches in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..config import Config
 from ..train.steps import EpisodeBatch
-from .episodes import draw_episode_spec
+from .episodes import EpisodeSpec, draw_episode_spec
 from .features import MultiModalFeatureStore
 
 
@@ -25,14 +25,16 @@ class MultiModalEpisodeSampler:
         self.store = store
 
     def sample_batch(self, rng: np.random.Generator, n_episodes: int,
-                     train: bool = True) -> EpisodeBatch:
-        """``n_episodes`` episodes as numpy arrays: clips are
-        ``{modality: (E, N, T, D)}`` dicts, labels (E, N) int32."""
+                     train: bool = True,
+                     specs: Optional[List[EpisodeSpec]] = None) -> EpisodeBatch:
+        """``n_episodes`` episodes (or the given ``specs``) as numpy arrays:
+        clips are ``{modality: (E, N, T, D)}`` dicts, labels (E, N) int32."""
         ep = self.cfg.episode
         queries = ep.query_per_class if train else ep.query_per_class_test
         index = self.store.split(train)
-        specs = [draw_episode_spec(index, ep.way, ep.shot, queries, rng)
-                 for _ in range(n_episodes)]
+        if specs is None:
+            specs = [draw_episode_spec(index, ep.way, ep.shot, queries, rng)
+                     for _ in range(n_episodes)]
         sup_f: Dict[str, list] = {m: [] for m in self.store.modalities}
         qry_f: Dict[str, list] = {m: [] for m in self.store.modalities}
         sup_l, qry_l = [], []

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..data.features import MultiModalFeatureStore
+from ..data.prefetch import DeferredHostSync, Prefetcher
 from ..data.splits import SplitIndex
 from ..models.teacher import MFMTeacher
 from ..train.loop import move_to_device
@@ -39,9 +40,10 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
     feature tree under the store's class names; returns the number of
     videos written.
 
-    Batch k+1 is read from disk and copied from pinned memory (without
-    blocking) while the device fuses batch k, and batch k's results are
-    read back and saved only after batch k+1 has been dispatched. Then the
+    A :class:`Prefetcher` thread reads batch k+1 from disk and copies it
+    from pinned memory while the device fuses batch k, and batch k's
+    results are read back and saved only after batch k+1 has been
+    dispatched (:class:`DeferredHostSync`). Then the
     first training video is fused again alone and must match its saved
     file within max(1e-4, 1e-2·max|saved|), the JAX package's
     self-consistency check; a mismatch raises."""
@@ -54,11 +56,10 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
         jobs += [(train, records[i:i + batch_size])
                  for i in range(0, len(records), batch_size)]
 
-    def assemble(job):
-        train, recs = job
-        return move_to_device({m: np.stack([store.load(r, m, train)
-                                            for r in recs])
-                               for m in store.modalities}, device)
+    def read(i):
+        train, recs = jobs[i]
+        return {m: np.stack([store.load(r, m, train) for r in recs])
+                for m in store.modalities}
 
     def fuse(feats):
         with torch.inference_mode():
@@ -72,17 +73,12 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
             _save_feature(out_root, class_names[rec.class_id], rec.video_id, f)
             count += 1
 
-    pending = None
-    nxt = assemble(jobs[0]) if jobs else None
-    for i, job in enumerate(jobs):
-        out = fuse(nxt)                        # enqueued; runs while we read
-        if i + 1 < len(jobs):
-            nxt = assemble(jobs[i + 1])
-        if pending is not None:
-            sink(*pending)
-        pending = (job, out)
-    if pending is not None:
-        sink(*pending)
+    deferred = DeferredHostSync(sink)
+    for i, feats in enumerate(Prefetcher(
+            read, len(jobs),
+            transfer=lambda b: move_to_device(b, device))):
+        deferred.push(jobs[i], fuse(feats))
+    deferred.flush()
 
     if count:
         rec = next(_iter_records(store.split(True)))

@@ -10,19 +10,25 @@ state of the dropout generator, and for a student run
 ``teacher_state_dict`` and the teacher's generator). The newest
 ``max_to_keep`` files are kept. The run's ``config.json`` lies beside them,
 so ``litemkd_torch.cli.test -m <file>`` (or ``train_teacher --test_only
--m <file>``) reads its geometry from there.
+-m <file>``) reads its geometry from there. A directory restores on either
+device type: a generator state saved on another one (a CUDA generator's is
+16 bytes, a CPU generator's 5,056) cannot be set, so that generator is
+reseeded from the run's seed and step instead, and the restore says so.
 """
 from __future__ import annotations
 
+import logging
 import os
 import re
 from typing import List, Optional
 
+import numpy as np
 import torch
 
-from .steps import TrainState
+from .steps import TrainState, dropout_seeds
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
+_log = logging.getLogger(__name__)
 
 
 def _cpu(sd: dict) -> dict:
@@ -68,8 +74,10 @@ class CheckpointManager:
             os.remove(self.path(old))
         return path
 
-    def restore(self, state: TrainState) -> TrainState:
-        """Load the newest checkpoint into ``state`` (in place)."""
+    def restore(self, state: TrainState, seed: int) -> TrainState:
+        """Load the newest checkpoint into ``state`` (in place). ``seed`` is
+        the run's ``cfg.train.seed``, from which a generator saved on
+        another device type is reseeded."""
         episodes = self.latest_step()
         if episodes is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -81,12 +89,29 @@ class CheckpointManager:
         state.scheduler.load_state_dict(ckpt["scheduler"])
         state.step = int(ckpt["step"])
         state.episodes_seen = int(ckpt["episodes_seen"])
-        state.generator.set_state(ckpt["generator"].cpu())
+        model_seed, teacher_seed = dropout_seeds(seed)
+        _set_generator(state.generator, ckpt["generator"], model_seed, state.step)
         if state.teacher is not None:
-            state.teacher_generator.set_state(ckpt["teacher_generator"].cpu())
+            _set_generator(state.teacher_generator, ckpt["teacher_generator"],
+                           teacher_seed, state.step)
             state.teacher.load_state_dict(ckpt["teacher_state_dict"],
                                           strict=True)
         return state
+
+
+def _set_generator(generator: torch.Generator, saved: torch.Tensor,
+                   seed: int, step: int) -> None:
+    """Set ``generator`` to its saved state; where that state comes from
+    another device type, seed it from (``seed``, ``step``) instead."""
+    saved = saved.cpu()
+    if saved.numel() == generator.get_state().numel():
+        generator.set_state(saved)
+        return
+    generator.manual_seed(int(np.random.SeedSequence((seed, step))
+                              .generate_state(1, np.uint64)[0]))
+    _log.warning("checkpoint generator state of %d bytes does not fit this "
+                 "%s generator; reseeded it from seed %d and step %d",
+                 saved.numel(), generator.device.type, seed, step)
 
 
 def verify_checkpoint_dir(directory: str, resume: bool) -> None:

@@ -10,9 +10,10 @@ from ``np.random.default_rng((seed, start_step + i))``, the JAX package's
 stream, so both packages train on the same episodes, resume included.
 Iteration counts are in episodes, as in the reference.
 
-Host work overlaps the device in both: step i is enqueued, batch i+1 is
-drawn and copied from pinned memory while the device runs, and only then
-are step i's results read.
+Host work overlaps the device in both: a :class:`Prefetcher` thread
+assembles the next batch and copies it from pinned memory while the device
+runs the current one, and :class:`DeferredHostSync` reads step i's results
+only after step i+1 is enqueued.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.prefetch import DeferredHostSync, Prefetcher
 from ..utils.logging import MetricsLogger
 from ..utils.metrics import TestAccuracies
 from .checkpoint import CheckpointManager
@@ -55,13 +57,14 @@ def to_device(batch: EpisodeBatch, device: torch.device) -> EpisodeBatch:
 def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
              n_tasks: Optional[int] = None, batch_size: int = 8, seed: int = 0,
              eval_step: Optional[Callable] = None,
-             device: Optional[torch.device] = None) -> dict:
+             device: Optional[torch.device] = None, specs=None) -> dict:
     """Episodic evaluation: mean accuracy ×100 with the 196·std/√n CI.
 
     ``model`` is an eval-mode ``BatchedStudent``, or an ``MFMTeacher`` with
     the MFM eval step; ``device`` defaults to the device of its parameters.
     ``eval_step(model, batch) → (E,)`` accuracies defaults to
-    :func:`make_eval_step`."""
+    :func:`make_eval_step`. With ``specs`` (fixed episodes, at least
+    ``n_tasks`` of them) chunk i replays its slice of them."""
     n_tasks = n_tasks or cfg.train.num_test_tasks
     eval_step = eval_step or make_eval_step(cfg)
     device = device or next(model.parameters()).device
@@ -69,19 +72,20 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
     sizes = [batch_size] * (n_tasks // batch_size)
     if n_tasks % batch_size:
         sizes.append(n_tasks % batch_size)
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+
+    def produce(i: int) -> EpisodeBatch:
+        if specs is None:
+            return sampler.sample_batch(rng, sizes[i], train=False)
+        return sampler.sample_batch(rng, sizes[i], train=False,
+                                    specs=specs[offsets[i]:offsets[i] + sizes[i]])
 
     acc = TestAccuracies()
-    pending = None
-    nxt = to_device(sampler.sample_batch(rng, sizes[0], train=False), device)
-    for i in range(len(sizes)):
-        accs = eval_step(model, nxt)          # enqueued; runs while we draw
-        if i + 1 < len(sizes):
-            nxt = to_device(sampler.sample_batch(rng, sizes[i + 1], train=False),
-                            device)
-        if pending is not None:
-            acc.extend(pending.cpu().numpy())
-        pending = accs
-    acc.extend(pending.cpu().numpy())
+    deferred = DeferredHostSync(lambda accs: acc.extend(accs.cpu().numpy()))
+    for batch in Prefetcher(produce, len(sizes),
+                            transfer=lambda b: to_device(b, device)):
+        deferred.push(eval_step(model, batch))
+    deferred.flush()
     return acc.summary()
 
 
@@ -130,7 +134,7 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     if cfg.train.checkpoint_dir:
         ckpt = CheckpointManager(cfg.train.checkpoint_dir)
         if cfg.train.resume_from_checkpoint and ckpt.latest_step() is not None:
-            ckpt.restore(state)
+            ckpt.restore(state, cfg.train.seed)
             logger.info(f"resumed at {state.episodes_seen} episodes")
 
     test_marks = sorted(m for m in cfg.train.test_iters
@@ -140,34 +144,24 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     start_step = state.step
 
     def produce(i: int) -> EpisodeBatch:
-        rng = np.random.default_rng((cfg.train.seed, start_step + i))
-        return to_device(sampler.sample_batch(rng, e_per_step, train=True),
-                         device)
+        return sampler.sample_batch(
+            np.random.default_rng((cfg.train.seed, start_step + i)),
+            e_per_step, train=True)
 
-    pending = []   # metrics of the last enqueued step, read one step late
-
-    def flush():
-        for step, episodes, metrics in pending:
-            logger.log(step, {k: float(v) for k, v in metrics.items()}
-                       | {"episodes": episodes})
-        pending.clear()
-
-    n_run = n_steps - start_step
-    nxt = produce(0) if n_run > 0 else None
-    for i in range(n_run):
-        metrics = train_step(state, nxt)          # enqueued; runs while we draw
-        if i + 1 < n_run:
-            nxt = produce(i + 1)
-        flush()
-        pending.append((state.step, state.episodes_seen, metrics))
+    deferred = DeferredHostSync(lambda step, episodes, metrics: logger.log(
+        step, {k: float(v) for k, v in metrics.items()} | {"episodes": episodes}))
+    for batch in Prefetcher(produce, n_steps - start_step,
+                            transfer=lambda b: to_device(b, device)):
+        metrics = train_step(state, batch)
+        deferred.push(state.step, state.episodes_seen, metrics)
 
         if ckpt and state.step % save_every == 0:
-            flush()
+            deferred.flush()
             ckpt.save(state)
 
         while test_marks and state.episodes_seen >= test_marks[0]:
             test_marks.pop(0)
-            flush()
+            deferred.flush()
             summary = run_eval(cfg, state.model.eval(), eval_sampler,
                                eval_step=eval_step, device=device)
             state.model.train()
@@ -176,7 +170,7 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
                         f"{summary['accuracy']:.2f} ± "
                         f"{summary['confidence']:.2f} "
                         f"({summary['n_tasks']} tasks)")
-    flush()
+    deferred.flush()
     if ckpt:
         ckpt.save(state)
     return eval_history

@@ -11,7 +11,7 @@ next as the JAX package's ``lax.scan`` carries them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,6 +62,12 @@ class TrainState:
     teacher_generator: Optional[torch.Generator]
 
 
+def dropout_seeds(seed: int) -> Tuple[int, int]:
+    """The seeds of the trained model's and the teacher's dropout
+    generators for a run of ``seed``."""
+    return seed + 2, seed + 3
+
+
 def create_train_state(cfg: Config, device, *,
                        student_state_dict: Optional[Dict] = None,
                        teacher_state_dict: Optional[Dict] = None,
@@ -69,8 +75,8 @@ def create_train_state(cfg: Config, device, *,
     """A fresh state on ``device``. The student and the teacher get random
     weights from ``cfg.train.seed`` (seed and seed + 1), or the given
     reference-layout state dicts (strict). The teacher is frozen. The
-    dropout generators live on ``device``, seeded with seed + 2 and
-    seed + 3."""
+    dropout generators live on ``device``, seeded by
+    :func:`dropout_seeds`."""
     device = torch.device(device)
     seed = cfg.train.seed
     model = BatchedStudent(cfg)
@@ -79,7 +85,8 @@ def create_train_state(cfg: Config, device, *,
     else:
         init_student_(model, torch.Generator().manual_seed(seed))
     model.to(device).train()
-    generator = torch.Generator(device=device).manual_seed(seed + 2)
+    model_seed, teacher_seed = dropout_seeds(seed)
+    generator = torch.Generator(device=device).manual_seed(model_seed)
     bind_dropout_generator(model, generator)
     teacher = BatchedTeacher(cfg)
     if teacher_state_dict is not None:
@@ -87,7 +94,7 @@ def create_train_state(cfg: Config, device, *,
     else:
         init_student_(teacher, torch.Generator().manual_seed(seed + 1))
     teacher.requires_grad_(False).to(device).train()
-    teacher_generator = torch.Generator(device=device).manual_seed(seed + 3)
+    teacher_generator = torch.Generator(device=device).manual_seed(teacher_seed)
     bind_dropout_generator(teacher, teacher_generator)
     opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),
                                 cfg.train.learning_rate, cfg.train.sch,

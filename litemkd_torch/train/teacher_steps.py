@@ -23,7 +23,7 @@ from ..ops.dtypes import anchor_dtype
 from ..ops.positional import bind_dropout_generator
 from ..utils.metrics import per_episode_accuracy
 from .schedule import make_optimizer
-from .steps import EpisodeBatch, TrainState
+from .steps import EpisodeBatch, TrainState, dropout_seeds
 
 
 def sum_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -57,7 +57,8 @@ def create_mfm_train_state(cfg: Config, device, kind: str = "mfm", *,
     ``kind`` (:func:`make_mfm`): random weights from ``cfg.train.seed``
     (:func:`init_mfm_`) or the given reference-layout state dict (strict),
     the optimizer and schedule, and a dropout generator on ``device``
-    seeded with seed + 2. There is no frozen teacher."""
+    seeded as the student's (:func:`dropout_seeds`). There is no frozen
+    teacher."""
     device = torch.device(device)
     seed = cfg.train.seed
     model = make_mfm(cfg, kind)
@@ -66,7 +67,7 @@ def create_mfm_train_state(cfg: Config, device, kind: str = "mfm", *,
     else:
         init_mfm_(model, torch.Generator().manual_seed(seed))
     model.to(device=device, dtype=anchor_dtype(compute_dtype(cfg))).train()
-    generator = torch.Generator(device=device).manual_seed(seed + 2)
+    generator = torch.Generator(device=device).manual_seed(dropout_seeds(seed)[0])
     bind_dropout_generator(model, generator)
     opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),
                                 cfg.train.learning_rate, cfg.train.sch,

@@ -363,3 +363,27 @@ def test_mfm_train_step_on_card_matches_cpu(cuda_device):
             assert p.grad is None, name
             continue
         assert (p.grad.cpu() - grads[name]).abs().max().item() <= 1e-3 * g_max, name
+
+
+@pytest.mark.cuda
+def test_checkpoint_dir_from_card_restores_on_cpu(cuda_device, tmp_path, caplog):
+    """A directory that training on the card wrote (16-byte CUDA generator
+    states) resumes with ``--device cpu``: the student run goes on to its
+    end, and the MFM teacher's directory evaluates with ``--test_only``;
+    both restores say that they reseeded the generators."""
+    import logging
+    from litemkd_torch.cli import train, train_teacher
+    student, teacher = tmp_path / "student", tmp_path / "teacher"
+    train.main(["--preset", "tiny", "--dataset", "synthetic", "-c", str(student),
+                "--device", "cuda"])
+    caplog.set_level(logging.WARNING)
+    state, _ = train.main(["--preset", "tiny", "--dataset", "synthetic", "-c",
+                           str(student), "-r", "--training_iterations", "8",
+                           "--device", "cpu"])
+    assert state.step == 4 and state.episodes_seen == 8
+    train_teacher.main(["--preset", "tiny", "--dataset", "synthetic", "-c",
+                        str(teacher), "--device", "cuda"])
+    summary = train_teacher.main(["--test_only", "-m", str(teacher),
+                                  "--device", "cpu"])
+    assert summary["n_tasks"] == 2
+    assert caplog.text.count("reseeded it from seed") == 3   # 2 student, 1 MFM

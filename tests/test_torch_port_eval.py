@@ -132,6 +132,12 @@ def test_config_json_round_trips_between_packages():
     ["--preset", "mfm_teacher", "--dataset", "hmdb", "--split", "1",
      "--traintestlist", "{dir}/splits"],
     ["--preset", "student_fc2sup_dist", "--dataset", "ucf"],
+    ["--preset", "tiny", "--dataset", "hmdb", "--RGB_path", "{dir}/frames",
+     "--teacher_path", "{dir}/fused", "--traintestlist", "{dir}/splits",
+     "--num_workers", "7", "--fixed_episode_file", "{dir}/fixed.json",
+     "--cross_view", "--view", "2", "--view_root", "{dir}/views"],
+    ["-m", "{dir}/student.pt", "--rgb_path", "{dir}/frames", "--fixed_view",
+     "Camera_1", "--num_workers", "0"],
 ])
 def test_cli_config_equals_jax(argv, tmp_path):
     """The port's eval flags build the config that the JAX package's
@@ -185,8 +191,12 @@ def _imports(path: Path):
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "litemkd_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "synthetic_e2e.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {"litemkd_torch/native/__init__.py", "litemkd_torch/data/video.py",
+            "litemkd_torch/data/episodes.py", "litemkd_torch/data/prefetch.py",
+            "litemkd_torch/cli/gen_fixed_split.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",

@@ -491,9 +491,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 6"):
         tt_cli.main(["--preset", "tiny", "--fusion", "tsf", "--device", "cpu",
                      "--debug"])
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tt_cli.main(["--preset", "tiny", "--fixed_episode_file", "x.json",
-                     "--device", "cpu", "--debug"])
     with pytest.raises(NotImplementedError, match="queue 5"):
         extract_cli.main(["--mode_extract", "expert", "--out", "x",
                           "--device", "cpu"])
@@ -503,6 +500,41 @@ def test_unported_options_raise():
                           "--out", "x", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="queue 6"):
         make_mfm(_cfg(torch_config.preset), kind="dga")
+
+
+@pytest.mark.parametrize("fmt", ["native", "reference"])
+def test_teacher_fixed_episode_replay_matches_jax(jax_mfm, feature_root,
+                                                  tmp_path, fmt):
+    """``--test_only --fixed_episode_file`` replays the same five episodes
+    in both packages from the same JAX-exported ``.pt``: the same accuracy
+    and CI over ``len(specs)`` tasks (the replay that used to raise)."""
+    from litemkd_torch.data import (draw_episode_spec, save_fixed_episodes,
+                                    save_reference_fixed_episodes)
+    _, v = jax_mfm
+    init = str(tmp_path / "init.pt")
+    export_mfm_checkpoint(v, _cfg(jax_config.preset), init)
+    _, store = _stores(feature_root)
+    index = store.split(False)
+    rng = np.random.default_rng(12)
+    specs = [draw_episode_spec(index, WAY, SHOT, 1, rng) for _ in range(5)]
+    path = str(tmp_path / "fixed.json")
+    if fmt == "native":
+        save_fixed_episodes(specs, path)
+    else:
+        save_reference_fixed_episodes(specs, index, path)
+    argv = ["--test_only", "-m", init, "--preset", "tiny", "--dataset", "hmdb",
+            "--feature_root", str(feature_root), "--traintestlist",
+            str(feature_root / "splits"), "--way", str(WAY), "--shot",
+            str(SHOT), "--query_per_class_test", "1", "--seq_len", str(T),
+            "--trans_linear_in_dim", str(D), "--trans_linear_out_dim", "24",
+            "--trans_num", "1", "--trans_dropout", "0", "--num_test_tasks",
+            "2", "--fixed_episode_file", path]
+    want = jax_tt_cli.main(argv + ["--debug"])
+    got = tt_cli.main(argv + ["--device", "cpu"])
+    assert got["n_tasks"] == want["n_tasks"] == 5
+    for k in ("accuracy", "confidence"):
+        assert got[k] == pytest.approx(want[k], abs=1e-9), k
+    assert 0.0 < got["accuracy"] < 100.0
 
 
 def test_train_teacher_cli_matches_jax(jax_mfm, feature_root, tmp_path,
