@@ -51,7 +51,20 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    the checkpoint's config, the same batches and accuracies both times),
    and once without it (6 other episodes from the same seed); then the
    host's decode rates on 1, 4 and all cores, the host seconds of one
-   16-episode batch and of its pinned copy to the card.
+   16-episode batch and of its pinned copy to the card;
+8. the expert and pretrain stages on phase 7's tree, closing the chain
+   from frames: resnet50 pretraining (one epoch, batches of 8 clips)
+   through ``litemkd_torch.cli.pretrain.main``; full-width ``expert_trx``
+   training with the BN kernels and per-block remat (2 steps of 16
+   episodes in chunks of 4, an 8-episode eval) through
+   ``litemkd_torch.cli.train.main`` against phase 6's fused tree, with the
+   launch counts read around it; the whole tree through ``cli.extract
+   --mode_extract expert --arch resnet50`` from the pretrain checkpoint;
+   phase 6's MFM teacher evaluated through ``--test_only`` with that
+   extraction as its ``rgb`` modality; then the device-resident expert
+   step with and without remat, on the BN kernels and on cuDNN, with peak
+   memory. Phase 3 holds the TCT kernel at the expert shape (E 4, Q 20)
+   and the BN kernels at the resnet50 layer widths of one expert chunk.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -76,6 +89,7 @@ from PIL import Image
 from litemkd_torch import preset
 from litemkd_torch.cli import extract as cli_extract
 from litemkd_torch.cli import gen_fixed_split as cli_gen
+from litemkd_torch.cli import pretrain as cli_pretrain
 from litemkd_torch.cli import test as cli_test
 from litemkd_torch.cli import train as cli_train
 from litemkd_torch.cli import train_teacher as cli_teacher
@@ -99,6 +113,7 @@ HBM_RATE = 3.35e12    # H100 SXM HBM3 bytes/s
 EVAL = dict(e=8, q=5, u=28, dk=1152, w=5, s=5)    # main path: 8-episode eval chunk
 TRAIN = dict(e=4, q=25, u=28, dk=1152, w=5, s=5)  # training micro-batch of 4
 MFM_TRAIN = dict(e=16, q=25, u=28, dk=1152, w=5, s=5)  # MFM step: 16 episodes at once
+EXPERT_TRAIN = dict(e=4, q=20, u=28, dk=1152, w=5, s=5)  # expert_trx chunk: qpc 4
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
           dict(e=3, q=11, u=28, dk=100, w=7, s=3),
           dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
@@ -115,6 +130,8 @@ BN_LAYERS = [("stem", 1, 112, 112, 64), ("layer1", 4, 56, 56, 64),
              ("layer2", 5, 28, 28, 128), ("layer3", 5, 14, 14, 256),
              ("layer4", 5, 7, 7, 512)]
 CHUNK_FRAMES = 1600
+# one expert_trx training chunk: 4 episodes × (25 + 20) clips × 8 frames
+EXPERT_CHUNK_FRAMES = 1440
 BN_RAGGED = [(210, 16), (1000, 100), (4096, 2048)]
 TRAIN_EPISODES, TRAIN_STEPS, EVAL_TASKS = 16, 2, 8
 TRAIN_ARGV = ["--preset", "student_fc2sup_dist", "--dataset", "synthetic",
@@ -251,7 +268,8 @@ def tct_phase():
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     times = {}
     for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1),
-                              ("mfm_train", MFM_TRAIN, 3)):
+                              ("mfm_train", MFM_TRAIN, 3),
+                              ("expert_train", EXPERT_TRAIN, 4)):
         args, err = check_kernel(shape, seed)
         times[name] = time_kernel(shape, args)
         auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
@@ -517,15 +535,38 @@ def time_bn(name, h, w, c, inputs):
     return out
 
 
-def bn_phase():
-    """The five BN shapes of a training chunk in bf16, timed, and the ragged
-    shapes in fp32 and bf16. Returns per-chunk totals (each layer's time ×
-    its BatchNorms per chunk) and the largest error."""
+def resnet50_bn_layers(img=224):
+    """The BatchNorm inputs of the port's resnet50 trunk at ``img`` px, read
+    from the module (a meta-device forward with a hook on every
+    BatchNorm): [(name, count, H, W, C)] in order of first use."""
+    from litemkd_torch.models.backbones import ResNetTrunk
+    from litemkd_torch.ops.batch_norm import BatchNorm
+    with torch.device("meta"):
+        trunk = ResNetTrunk(50).eval()
+        shapes = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: shapes.append(tuple(args[0].shape[1:])))
+            for m in trunk.modules() if isinstance(m, BatchNorm)]
+        trunk(torch.empty(1, img, img, 3))
+    for h in hooks:
+        h.remove()
+    counts = {}
+    for c, h, w in shapes:
+        counts[(h, w, c)] = counts.get((h, w, c), 0) + 1
+    return [(f"{h}x{w}x{c}", n, h, w, c) for (h, w, c), n in counts.items()]
+
+
+def bn_phase(layers=BN_LAYERS, frames=CHUNK_FRAMES, label="training chunk",
+             ragged=True):
+    """Every BN shape of a training chunk (``layers``, ``frames`` frames)
+    in bf16, timed, and with ``ragged`` the ragged shapes in fp32 and bf16.
+    Returns per-chunk totals (each layer's time × its BatchNorms per chunk)
+    and the largest error."""
     totals = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
               for k in ("sums", "bwd_sums")}
     err_max = 0.0
-    for i, (name, count, h, w, c) in enumerate(BN_LAYERS):
-        inputs, err = check_bn(CHUNK_FRAMES * h * w, c, torch.bfloat16, 10 + i)
+    for i, (name, count, h, w, c) in enumerate(layers):
+        inputs, err = check_bn(frames * h * w, c, torch.bfloat16, 10 + i)
         err_max = max(err_max, err)
         times = time_bn(name, h, w, c, inputs)
         del inputs
@@ -533,13 +574,17 @@ def bn_phase():
             for k in totals[key]:
                 totals[key][k] += count * t[k]
             totals[key]["bound_by"] = t["bound_by"]
-    for i, (r, c) in enumerate(BN_RAGGED):
-        for dtype in (torch.float32, torch.bfloat16):
-            check_bn(r, c, dtype, 20 + i)
+        torch.cuda.empty_cache()
+    if ragged:
+        for i, (r, c) in enumerate(BN_RAGGED):
+            for dtype in (torch.float32, torch.bfloat16):
+                check_bn(r, c, dtype, 20 + i)
+    n_bn = sum(layer[1] for layer in layers)
     for key, t in totals.items():
-        log(f"[kernel] bn_{key} per training chunk (20 BatchNorms): "
-            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-            f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f}")
+        log(f"[kernel] bn_{key} per {label} ({n_bn} BatchNorms, {frames} "
+            f"frames): kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+            f"(kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of the bound)")
     torch.cuda.empty_cache()
     return totals, err_max
 
@@ -644,20 +689,35 @@ def zero_counts():
     bn.bn_bwd_sums.launches = 0
 
 
+def _timed(cls, name, total):
+    """Wrap ``cls.name`` so that its seconds add up in ``total[0]``; returns
+    the original."""
+    orig = getattr(cls, name)
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        out = orig(self, *a, **k)
+        total[0] += time.perf_counter() - t
+        return out
+
+    setattr(cls, name, timed)
+    return orig
+
+
+def _train_records(ckdir):
+    """The metric records (those with a step) of the JSONL logs in
+    ``ckdir``."""
+    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
+               for line in f.read_text().splitlines()]
+    return [r for r in records if "step" in r]
+
+
 def train_main_path(card, run_root):
     """Full-width training through the CLI with the launch counts read
     around it; then the checkpoint it wrote through the eval CLI."""
     ckdir = run_root / "run"
     draw = [0.0]
-    sample_batch = SyntheticEpisodeSource.sample_batch
-
-    def timed(self, *a, **k):
-        t = time.perf_counter()
-        out = sample_batch(self, *a, **k)
-        draw[0] += time.perf_counter() - t
-        return out
-
-    SyntheticEpisodeSource.sample_batch = timed
+    sample_batch = _timed(SyntheticEpisodeSource, "sample_batch", draw)
     torch.cuda.reset_peak_memory_stats()
     try:
         zero_counts()
@@ -677,9 +737,7 @@ def train_main_path(card, run_root):
         f"{eval_chunks} eval chunk(s); expected {want}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
-               for line in f.read_text().splitlines()]
-    steps = [r for r in records if "task_loss" in r]
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
     if len(steps) != TRAIN_STEPS or not all(
             math.isfinite(r[k]) for r in steps for k in r):
         raise AssertionError(f"bad training metrics {steps}")
@@ -912,9 +970,7 @@ def mfm_main_path(card, run_root):
         f"{TRAIN_EPISODES} episodes and {eval_chunks} eval chunk(s); expected {want}")
     if counts != want:
         raise AssertionError(f"MFM launch counts {counts} != {want}")
-    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
-               for line in f.read_text().splitlines()]
-    steps = [r for r in records if "task_loss" in r]
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
     if len(steps) != TRAIN_STEPS or not all(
             math.isfinite(r[k]) for r in steps for k in r):
         raise AssertionError(f"bad MFM training metrics {steps}")
@@ -1167,15 +1223,7 @@ def video_main_path(label, run_root):
         f"; {'it' if built else 'PIL'} decodes the clips")
     data = ["--rgb_path", str(frames), "--traintestlist", str(splits)]
     draw = [0.0]
-    sample_batch = EpisodeSampler.sample_batch
-
-    def timed(self, *a, **k):
-        t = time.perf_counter()
-        out = sample_batch(self, *a, **k)
-        draw[0] += time.perf_counter() - t
-        return out
-
-    EpisodeSampler.sample_batch = timed
+    sample_batch = _timed(EpisodeSampler, "sample_batch", draw)
     video_mod.decoders_used.clear()
     try:
         zero_counts()
@@ -1198,9 +1246,7 @@ def video_main_path(label, run_root):
     if ran != ["native" if built else "pil"]:
         raise AssertionError(f"decoders {ran} ran; the C++ decoder is "
                              f"{'built' if built else 'not built'}")
-    records = [json.loads(line) for f in ckdir.glob("*.jsonl")
-               for line in f.read_text().splitlines()]
-    steps = [r for r in records if "task_loss" in r]
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
     if len(steps) != TRAIN_STEPS or not all(
             math.isfinite(r[k]) for r in steps for k in r):
         raise AssertionError(f"bad real-data training metrics {steps}")
@@ -1281,6 +1327,239 @@ def video_main_path(label, run_root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The expert and pretrain stages: pretraining, expert training, expert
+# extraction, and the MFM over the port's own expert features
+# ---------------------------------------------------------------------------
+
+EXPERT_PRESET = "expert_trx"
+EXPERT_ARGV = ["--preset", EXPERT_PRESET, "--pallas_bn", "--remat", "--dataset", "hmdb",
+               "--training_iterations", str(TRAIN_EPISODES * TRAIN_STEPS),
+               "--test_iters", str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks",
+               str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda"]
+PRETRAIN_ARGV = ["--dataset", "hmdb", "--arch", "resnet50", "--epochs", "1",
+                 "--batch_size", "8", "--print_freq", "1", "--device", "cuda"]
+EXTRACT_DEVICE_VIDEOS = 64
+# (remat, micro-batch): per-block remat at the preset's 4 episodes a chunk,
+# and none at 2 (the JAX bench's expert setting); each with the BN kernels
+# and with cuDNN BatchNorm
+EXPERT_RATE_SETTINGS = [(True, 4, True), (True, 4, False), (False, 2, True),
+                        (False, 2, False)]
+
+
+def expert_launches(cfg):
+    """The kernel launches of ``cli.train`` for ``cfg`` (2 steps and an
+    ``EVAL_TASKS``-episode eval): per training chunk the student's and the
+    teacher's TCT, one ``bn_bwd_sums`` per BatchNorm and one ``bn_sums`` per
+    BatchNorm plus one per BatchNorm of a residual block recomputed under
+    ``--remat`` (all but the stem's); the eval chunks launch the student's
+    TCT only."""
+    from litemkd_torch.models import BatchedStudent
+    from litemkd_torch.ops.batch_norm import BatchNorm
+    with torch.device("meta"):
+        trunk = BatchedStudent(cfg).backbone.resnet
+    n_bn = sum(isinstance(m, BatchNorm) for m in trunk.modules())
+    n_block = sum(isinstance(m, BatchNorm) for layer in list(trunk)[4:]
+                  for m in layer.modules())
+    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    return dict(tct_attention=2 * chunks + math.ceil(EVAL_TASKS / 8),
+                bn_sums=(n_bn + (n_block if cfg.model.remat else 0)) * chunks,
+                bn_bwd_sums=n_bn * chunks)
+
+
+def pretrain_path(label, frames, splits, ckdir):
+    """Full-width resnet50 pretraining through ``cli.pretrain``: one epoch
+    over the tree's training videos, then the test split; no kernel of the
+    port runs (the classifier has cuDNN BatchNorm, as in the JAX package).
+    Returns the checkpoint it kept."""
+    loads = [0.0]
+    orig = _timed(VideoStore, "load", loads)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        state = cli_pretrain.main(PRETRAIN_ARGV + [
+            "--rgb_path", str(frames), "--traintestlist", str(splits), "-c", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        VideoStore.load = orig
+    if counts != dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0):
+        raise AssertionError(f"pretraining launched kernels: {counts}")
+    epochs = [r for r in _train_records(ckdir) if "epoch_loss" in r]
+    if len(epochs) != 1 or not all(math.isfinite(v) for v in epochs[0].values()):
+        raise AssertionError(f"bad pretraining metrics {epochs}")
+    saved = sorted(ckdir.glob("checkpoint_*.pt"))
+    if len(saved) != 1 or saved[0].name != f"checkpoint_{state.episodes_seen}.pt":
+        raise AssertionError(f"pretraining kept {saved}")
+    vs = VideoStore(str(frames), str(splits), 3, 8, 224)
+    n_train = state.episodes_seen
+    n_test = sum(vs.split(False).n_videos(c) for c in vs.split(False).classes())
+    log(f"[pretrain] resnet50 through cli.pretrain on {label}: {state.step} steps of "
+        f"8 clips, epoch metrics {epochs[0]}; {(n_train + n_test) / wall:.3f} clips/s "
+        f"end to end ({n_train} training + {n_test} test clips of 8 frames at 224 "
+        f"px in {wall:.2f} s, model set-up and the {saved[0].stat().st_size / 1e6:.1f} "
+        f"MB checkpoint write included; host clip loads {loads[0]:.2f} s, the "
+        f"training batches' on the prefetch thread); kept {saved[0].name}")
+    return saved[0]
+
+
+def expert_train_path(label, frames, splits, fused, ckdir):
+    """Full-width ``expert_trx`` training with the BN kernels and per-block
+    remat (2 steps of 16 episodes in chunks of 4, an 8-episode eval)
+    through ``cli.train`` against the fused tree, with the launch counts
+    read around it. Returns the counts."""
+    from litemkd_torch.data import EpisodeSampler
+    data = ["--rgb_path", str(frames), "--traintestlist", str(splits),
+            "--teacher_path", str(fused)]
+    draw = [0.0]
+    orig = _timed(EpisodeSampler, "sample_batch", draw)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        _, history = cli_train.main(EXPERT_ARGV + data + ["-c", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        EpisodeSampler.sample_batch = orig
+    want = expert_launches(cli_train.parse(EXPERT_ARGV + data)[1])
+    log(f"[expert] training launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"expert launch counts {counts} != {want}")
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            math.isfinite(r[k]) for r in steps for k in r):
+        raise AssertionError(f"bad expert training metrics {steps}")
+    if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
+        raise AssertionError(f"bad expert mid-training eval {history}")
+    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    log("[expert] per-step metrics: " + json.dumps(
+        [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
+        + f"; eval {history[0]}")
+    log(f"[expert] expert_trx --pallas_bn --remat through cli.train from the JPEG tree "
+        f"on {label}: {n_eps / wall:.3f} episodes/s end to end ({wall:.2f} s for "
+        f"{n_eps} training + {EVAL_TASKS} eval episodes, model set-up and checkpoint "
+        f"write included; host batch assembly {draw[0]:.2f} s on the prefetch "
+        f"thread); peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def expert_extract_path(label, frames, splits, pretrained, out):
+    """The whole tree through ``cli.extract --mode_extract expert --arch
+    resnet50 -m <pretrain checkpoint>``: every file (8, 2048) fp32 finite,
+    no kernel launched; then the device-resident rate per
+    ``EXTRACT_DEVICE_VIDEOS`` videos."""
+    argv = ["--mode_extract", "expert", "--arch", "resnet50", "-m", str(pretrained),
+            "--dataset", "hmdb", "--rgb_path", str(frames), "--traintestlist",
+            str(splits), "--out", str(out), "--device", "cuda"]
+    zero_counts()
+    t0 = time.perf_counter()
+    n = cli_extract.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    files = sorted(out.rglob("feature.npy"))
+    if n != len(files) or n == 0 or any(counts.values()):
+        raise AssertionError(f"expert extraction wrote {n} / {len(files)} files, "
+                             f"launches {counts}")
+    for f in files:
+        a = np.load(f)
+        if a.shape != (8, 2048) or a.dtype != np.float32 or not np.isfinite(a).all():
+            raise AssertionError(f"bad expert feature {f}: {a.shape} {a.dtype}")
+    log(f"[expert] extraction through cli.extract on {label}: {n} videos in "
+        f"{wall:.2f} s ({n / wall:.3f} videos/s end to end, trunk load and host "
+        f"decode included)")
+    _, args, cfg = cli_extract.parse(argv)
+    model = cli_extract.load_expert_trunk(cfg, "resnet50", str(pretrained),
+                                          torch.device("cuda"))
+    clips = torch.randint(0, 256, (EXTRACT_DEVICE_VIDEOS, 8, 224, 224, 3),
+                          dtype=torch.uint8, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            return model.expert_features(clips)
+
+    ms = cuda_ms(run, 5, warmup=1)
+    log(f"[expert] device-resident extraction on {label}: "
+        f"{1e3 * EXTRACT_DEVICE_VIDEOS / ms:.3f} videos/s ({ms:.3f} ms per "
+        f"{EXTRACT_DEVICE_VIDEOS} videos of 8 frames at 224 px, bf16 trunk)")
+    del model, clips
+    torch.cuda.empty_cache()
+    return n
+
+
+def chain_eval(label, run_root, expert_out):
+    """The MFM teacher of phase 6 evaluated through ``cli.train_teacher
+    --test_only`` on a feature root whose ``rgb`` tree is the port's own
+    expert extraction (``depth`` and ``flow`` as phase 6 wrote them): one
+    TCT launch, a finite accuracy."""
+    chain = run_root / "chain"
+    chain.mkdir()
+    (chain / "rgb").symlink_to(expert_out)
+    for m in MFM_MODS[1:]:
+        (chain / m).symlink_to(run_root / "tree" / m)
+    ckpt = run_root / "mfm" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    zero_counts()
+    summary = cli_teacher.main(["--test_only", "-m", str(ckpt), "--num_test_tasks",
+                                str(EVAL_TASKS), "--feature_root", str(chain),
+                                "--device", "cuda"])
+    counts = read_counts()
+    if counts != dict(tct_attention=1, bn_sums=0, bn_bwd_sums=0) or \
+            summary["n_tasks"] != EVAL_TASKS or not math.isfinite(summary["accuracy"]):
+        raise AssertionError(f"bad MFM eval over the port's expert features: "
+                             f"{summary}, {counts}")
+    log(f"[chain] MFM --test_only over rgb features from the port's resnet50 "
+        f"expert extraction (depth, flow from phase 6) on {label}: {summary}; "
+        f"launches {counts}")
+    return counts
+
+
+def expert_device_rate(label):
+    """The expert_trx training step on one 16-episode batch made on the card
+    (CUDA events over 3 steps after one warm-up) with peak memory, for each
+    of ``EXPERT_RATE_SETTINGS``; then one step of the first under the
+    profiler."""
+    for remat, micro, pallas_bn in EXPERT_RATE_SETTINGS:
+        base = preset(EXPERT_PRESET)
+        cfg = base.replace(
+            model=dataclasses.replace(base.model, pallas_bn=pallas_bn, remat=remat),
+            train=dataclasses.replace(base.train, micro_batch=micro))
+        state = create_train_state(cfg, "cuda")
+        batch = device_batch(cfg, TRAIN_EPISODES)
+        step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+        what = (f"{'remat' if remat else 'no remat'}, micro-batch {micro}, "
+                f"{'BN kernels' if pallas_bn else 'cuDNN BatchNorm'}")
+        log(f"[expert] device-resident expert_trx training on {label}, {what}: "
+            f"{1e3 * TRAIN_EPISODES / ms:.3f} episodes/s ({ms:.3f} ms per "
+            f"{TRAIN_EPISODES}-episode step of {TRAIN_EPISODES // micro} chunks of "
+            f"{micro * (25 + 20) * 8} frames); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if (remat, micro, pallas_bn) == EXPERT_RATE_SETTINGS[0]:
+            profile_step(lambda: step(state, batch), f"expert_trx step, {what}")
+        del state, batch
+        torch.cuda.empty_cache()
+
+
+def expert_main_path(label, run_root):
+    """Phase 8 on phase 7's JPEG tree: pretraining, expert training, expert
+    extraction and the chain's MFM eval, each through its CLI. Returns the
+    summed launch counts of expert training and the chain's eval."""
+    frames, splits = run_root / "frames", run_root / "tree" / "splits"
+    pretrained = pretrain_path(label, frames, splits, run_root / "pretrain")
+    counts = expert_train_path(label, frames, splits, run_root / "fused",
+                               run_root / "expert")
+    n = expert_extract_path(label, frames, splits, pretrained, run_root / "rgb_expert")
+    chain = chain_eval(label, run_root, run_root / "rgb_expert")
+    log(f"[expert] {n} videos: pretrained, expert-trained and extracted from frames")
+    return {k: counts[k] + chain[k] for k in counts}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1306,6 +1585,9 @@ def main():
     tct_grad_check(TRAIN, 5)
     tct_grad_check(RAGGED[0], 6)
     bn_times, bn_err = bn_phase()
+    expert_bn_times, expert_bn_err = bn_phase(
+        resnet50_bn_layers(), EXPERT_CHUNK_FRAMES, "expert_trx chunk (resnet50)",
+        ragged=False)
     reference_check()
     train_reference_check()
 
@@ -1351,8 +1633,20 @@ def main():
         # 7. real video data: the student from a JPEG tree against the
         # fused features that phase 6 extracted
         video_counts = video_main_path(smi.splitlines()[0], run_root)
+        # 8. the expert and pretrain stages on phase 7's tree, closing the
+        # chain from frames
+        expert_counts = expert_main_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
+    expert_device_rate(smi.splitlines()[0])
+    t = tct_times["expert_train"]
+    log(f"[expert] TCT kernel at the expert training shape {EXPERT_TRAIN}: kernel_ms="
+        f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+        f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, split TF32)")
+    for key, t in expert_bn_times.items():
+        log(f"[expert] bn_{key} per expert_trx chunk: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} (max_abs_err {expert_bn_err:.3e})")
     t = tct_times["mfm_train"]
     log(f"[mfm] TCT kernel at the MFM training shape {MFM_TRAIN}: kernel_ms="
         f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
@@ -1363,16 +1657,19 @@ def main():
              source="litemkd_torch/csrc/tct_attention.cu",
              replaces="litemkd_tpu/ops/pallas_tct.py:61",
              launches=(counts["tct_attention"] + mfm_counts["tct_attention"]
-                       + video_counts["tct_attention"]),
+                       + video_counts["tct_attention"]
+                       + expert_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
-             launches=counts["bn_sums"] + video_counts["bn_sums"],
+             launches=(counts["bn_sums"] + video_counts["bn_sums"]
+                       + expert_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:103",
-             launches=counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"],
+             launches=(counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"]
+                       + expert_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

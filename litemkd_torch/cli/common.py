@@ -1,10 +1,10 @@
 """Shared CLI plumbing of the port: the flags that its eval, training,
 MFM-teacher and extraction paths read, copied from
 ``litemkd_tpu/cli/common.py:67-378`` and the JAX package's
-``train_teacher``/``extract`` CLIs (same names, same mapping onto the typed
-Config), plus ``--device``, the sampler, fixed-episode files and the device
-choice. Flags of paths the port does not have yet (meshes, teacher eval,
-per-task logs) come with those paths.
+``train_teacher``/``extract``/``pretrain`` CLIs (same names, same mapping
+onto the typed Config), plus ``--device``, the sampler, fixed-episode
+files and the device choice. Flags of paths the port does not have yet
+(meshes, teacher eval, per-task logs) come with those paths.
 """
 from __future__ import annotations
 
@@ -48,6 +48,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--freeze_bn", action="store_true", default=None,
                    help="BN uses running stats during training (finetune "
                         "mode)")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="recompute each residual block's forward in the "
+                        "backward pass (activation memory for trunk time)")
     # distillation (options.py:40, 48-60); the name also picks the logit
     # merge rule
     p.add_argument("--distill_name", default=None)
@@ -113,6 +116,24 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "with the step metrics")
     p.add_argument("--debug", action="store_true",
                    help="no checkpoints, no log files")
+
+
+def add_pretrain_args(p: argparse.ArgumentParser) -> None:
+    """The supervised pretraining flags (``litemkd_tpu/cli/pretrain.py:26-40``),
+    with the JAX package's defaults."""
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--lr_1", type=float, default=0.000001,
+                   help="trunk SGD learning rate (pretrain.py:31,84)")
+    p.add_argument("--lr_2", type=float, default=0.01,
+                   help="classifier-head SGD learning rate (pretrain.py:32,85)")
+    p.add_argument("--arch", default="resnet50",
+                   help="resnet18|resnet34|resnet50 (Action_Recognition_"
+                        "Resnet50); deit_small is not ported yet")
+    p.add_argument("--init_checkpoint", default=None,
+                   help="warm-start the trunk from a torchvision resnet zoo "
+                        "file, a pretrain (convnet.*) or expert (resnet.*) "
+                        ".pt, or a trunk.* file")
 
 
 def add_fusion_args(p: argparse.ArgumentParser) -> None:
@@ -215,7 +236,8 @@ def build_config(args: argparse.Namespace,
         temp_set=tuple(args.temp_set) if args.temp_set else m.temp_set,
         trans_dropout=pick(m.trans_dropout, args.trans_dropout),
         pallas_bn=pick(m.pallas_bn, args.pallas_bn),
-        freeze_bn=pick(m.freeze_bn, args.freeze_bn)))
+        freeze_bn=pick(m.freeze_bn, args.freeze_bn),
+        remat=pick(m.remat, args.remat)))
     d = cfg.distill
     cfg = cfg.replace(distill=dataclasses.replace(
         d, name=pick(d.name, args.distill_name),

@@ -1,18 +1,32 @@
-"""Fused-feature extraction (port of the ``--mode_extract mfm`` part of
-``litemkd_tpu/cli/extract.py:29-148``; the reference's
-``extract_multi_feature.py``): writes the ``<class>/<video>/feature.npy``
-tree that the student's ``teacher_path`` reads.
+"""Feature extraction (port of ``litemkd_tpu/cli/extract.py:29-148``; the
+reference's ``extract_feature.py`` and ``extract_multi_feature.py``). Two
+modes, each writing a ``<class>/<video>/feature.npy`` tree:
+
+- expert: per-modality per-video trunk features of an
+  ``ActionRecognitionNet`` (the ``<modality>`` trees the MFM teacher reads):
+
+    python -m litemkd_torch.cli.extract --mode_extract expert \\
+        --arch resnet50 -m PRETRAIN.pt --rgb_path FRAMES \\
+        --traintestlist SPLITS --out OUT
+
+  ``-m`` takes a ``.pt`` (the port's or the reference's pretrain
+  checkpoint, a run.py expert artifact or a torchvision resnet zoo file;
+  the trunk is read) or a checkpoint directory of ``cli.pretrain`` (its
+  newest checkpoint); without it the trunk gets random weights from
+  ``cfg.train.seed``. The feature width follows the trunk (512, 512, 2048).
+- mfm: fused multi-modal features, the tree the student's
+  ``teacher_path`` reads:
 
     python -m litemkd_torch.cli.extract --mode_extract mfm \\
         -m DIR/checkpoint_N.pt --feature_root R --traintestlist R/splits \\
         --out OUT
 
-``-m`` takes a ``ThreeTRXShiftLoopTime`` ``.pt`` (the port's checkpoint,
-one that ``export_mfm_checkpoint`` wrote, or the reference's; strict) or a
-checkpoint directory of the port (its newest checkpoint); without it the
-teacher gets random weights from ``cfg.train.seed``. Runs on cuda unless
-``--device`` says otherwise, in fp32 with TF32 off. Expert extraction is not
-ported yet.
+  ``-m`` takes a ``ThreeTRXShiftLoopTime`` ``.pt`` (the port's checkpoint,
+  one that ``export_mfm_checkpoint`` wrote, or the reference's; strict) or
+  a checkpoint directory of the port (its newest checkpoint); without it
+  the teacher gets random weights from ``cfg.train.seed``.
+
+Runs on cuda unless ``--device`` says otherwise, with TF32 off.
 """
 from __future__ import annotations
 
@@ -21,11 +35,13 @@ import os
 
 import torch
 
-from ..data import MultiModalFeatureStore
+from ..data import MultiModalFeatureStore, VideoStore
+from ..models.student import init_student_
 from ..models.teacher import init_mfm_
-from ..tools.extract import extract_mfm_features
-from ..tools.weights import load_reference_mfm_state_dict
-from ..train import CheckpointManager, make_mfm
+from ..tools.extract import extract_expert_features, extract_mfm_features
+from ..tools.weights import (load_pretrain_init, load_reference_mfm_state_dict,
+                             merge_state_dict)
+from ..train import CheckpointManager, make_mfm, make_pretrain_model
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      apply_fusion_args, build_config, load_saved_config,
                      resolve_device, set_fp32_math)
@@ -41,14 +57,45 @@ def parse(argv=None):
     p.add_argument("--mode_extract", choices=["expert", "mfm"], required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--test_model_path", "-m", default=None,
-                   help="ThreeTRXShiftLoopTime .pt or a checkpoint directory "
-                        "of the port (random weights without it)")
+                   help="mfm: a ThreeTRXShiftLoopTime .pt; expert: a "
+                        "pretrain, expert or torchvision .pt; or a "
+                        "checkpoint directory of the port (random weights "
+                        "without it)")
     p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--arch", default="resnet50",
+                   choices=["resnet18", "resnet34", "resnet50"],
+                   help="expert trunk for expert mode (reference "
+                        "extract_feature.py --model); feature dim follows "
+                        "the trunk (512/512/2048)")
     p.add_argument("--fusion", default="mfm",
                    help="fusion teacher kind; the port has mfm")
     args = p.parse_args(argv)
     cfg = build_config(args, base=load_saved_config(args.test_model_path))
     return p, args, apply_fusion_args(cfg, args)
+
+
+def _newest(path):
+    """``path``, or the newest checkpoint of ``path`` when it is a
+    checkpoint directory of the port."""
+    if path and os.path.isdir(path):
+        mgr = CheckpointManager(path)
+        return mgr.path(mgr.latest_step())
+    return path
+
+
+def load_expert_trunk(cfg, arch, path, device):
+    """An eval-mode ``ActionRecognitionNet`` of ``arch`` on ``device``, its
+    trunk read from ``path`` (:func:`load_pretrain_init`; a directory means
+    its newest checkpoint) over random weights from ``cfg.train.seed``.
+    Extraction reads only the trunk, so the head's width is arbitrary."""
+    model = make_pretrain_model(cfg, 2, arch)
+    init_student_(model, torch.Generator().manual_seed(cfg.train.seed))
+    path = _newest(path)
+    if path:
+        model.load_state_dict(merge_state_dict(model.state_dict(),
+                                               load_pretrain_init(path, arch)),
+                              strict=True)
+    return model.to(device).eval()
 
 
 def load_mfm(cfg, kind, path, device):
@@ -57,9 +104,7 @@ def load_mfm(cfg, kind, path, device):
     the newest checkpoint of a directory, or with random weights from
     ``cfg.train.seed``."""
     model = make_mfm(cfg, kind)
-    if path and os.path.isdir(path):
-        mgr = CheckpointManager(path)
-        path = mgr.path(mgr.latest_step())
+    path = _newest(path)
     if path:
         model.load_state_dict(load_reference_mfm_state_dict(path, cfg),
                               strict=True)
@@ -71,9 +116,20 @@ def load_mfm(cfg, kind, path, device):
 def main(argv=None):
     p, args, cfg = parse(argv)
     if args.mode_extract == "expert":
-        raise NotImplementedError(
-            "expert extraction is not ported yet (ROADMAP queue 5: the "
-            "expert and pretrain stages)")
+        if not cfg.data.rgb_path:
+            p.error("expert extraction reads a frame tree: pass --rgb_path "
+                    "(the synthetic dataset has none)")
+        device = resolve_device(args.device)
+        set_fp32_math()
+        vs = VideoStore(cfg.data.rgb_path, cfg.data.traintestlist,
+                        cfg.data.split, cfg.episode.seq_len, cfg.episode.img_size)
+        model = load_expert_trunk(cfg, args.arch, args.test_model_path, device)
+        if args.test_model_path:
+            print(f"loaded {args.arch} trunk {args.test_model_path}")
+        n = extract_expert_features(vs, model, args.out,
+                                    batch_size=args.batch_size)
+        print(f"extracted {n} videos → {args.out}")
+        return n
     if not args.feature_root:
         p.error("mfm extraction reads per-modality feature trees: pass "
                 "--feature_root")

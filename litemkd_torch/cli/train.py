@@ -13,10 +13,19 @@ paired with each video by class name and video id; ``--dataset synthetic``
 draws clips and features in memory instead. Runs on cuda unless
 ``--device`` says otherwise, with TF32 off in matrix products and
 convolutions (the bf16 trunk is unaffected). ``--teacher_checkpoint`` loads a
-reference-layout teacher ``.pt`` and ``--init_checkpoint`` a
-reference-layout student ``.pt`` (strict); otherwise both get random
-weights from the seed. Checkpoints and ``config.json`` go to ``-c``; the
-eval CLI reads them with ``-m <dir>/checkpoint_<episodes>.pt``.
+reference-layout teacher ``.pt``; ``--init_checkpoint`` warm-starts the
+student from a reference student ``.pt``, a run.py expert artifact or a
+torchvision resnet zoo file (the trunk alone; the rest keeps its seeded
+init); otherwise both get random weights from the seed. Checkpoints and
+``config.json`` go to ``-c``; the eval CLI reads them with
+``-m <dir>/checkpoint_<episodes>.pt``. The per-modality TRX expert
+(reference ``run.py``) trains through the same CLI:
+
+    python -m litemkd_torch.cli.train --preset expert_trx --remat \\
+        --rgb_path FRAMES --traintestlist SPLITS --teacher_path FUSED -c DIR
+
+(as in the JAX package the CLI reads a teacher tree and runs the frozen
+teacher head, whose logits ``TRXLoss`` ignores).
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ import argparse
 import json
 
 from ..models import BatchedTeacher
-from ..tools.weights import (load_reference_state_dict,
+from ..tools.weights import (load_reference_state_dict, load_student_checkpoint,
                              teacher_state_dict_from_reference)
 from ..train import run_training, verify_checkpoint_dir
 from ..utils.logging import MetricsLogger
@@ -40,7 +49,9 @@ def parse(argv=None):
     add_train_args(p)
     add_device_arg(p)
     p.add_argument("--init_checkpoint", default=None,
-                   help="warm-start the student from a reference-layout .pt")
+                   help="warm-start the student from a reference student "
+                        ".pt, a run.py expert .pt or a torchvision resnet "
+                        "zoo file (trunk only)")
     args = p.parse_args(argv)
     return args, build_config(args)
 
@@ -66,7 +77,7 @@ def main(argv=None):
             BatchedTeacher(cfg))
         logger.info(f"loaded teacher head from {args.teacher_checkpoint}")
     if args.init_checkpoint:
-        student_sd = load_reference_state_dict(args.init_checkpoint)
+        student_sd = load_student_checkpoint(args.init_checkpoint, cfg)
         logger.info(f"warm-started student from {args.init_checkpoint}")
 
     state, history = run_training(cfg, sampler, logger, device=device,

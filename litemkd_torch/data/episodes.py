@@ -197,6 +197,11 @@ class EpisodeSampler:
                     for cand in idx.videos_for_class(cid):
                         self._feat_lookup[(train, cname, cand.video_id)] = cand
 
+    @property
+    def with_teacher_feats(self) -> bool:
+        """Whether batches carry teacher features (a feature store)."""
+        return self.features is not None
+
     def _index(self, train: bool) -> SplitIndex:
         store = self.videos if self.videos is not None else self.features
         return store.split(train)

@@ -44,7 +44,7 @@ class SyntheticEpisodeSource:
         self.cfg = cfg
         self.n_classes = n_classes
         self.noise = noise
-        self.with_teacher = with_teacher_feats
+        self.with_teacher_feats = with_teacher_feats
         self._content_seed = seed   # keys the replayable per-video draws
         ep, m = cfg.episode, cfg.model
         rng = np.random.default_rng(seed)
@@ -91,19 +91,19 @@ class SyntheticEpisodeSource:
                 q_vid = _spec_video_ids(ql, spec.query_idx)
                 s_clips.append(self._replay_frames(classes[sl], s_vid))
                 q_clips.append(self._replay_frames(classes[ql], q_vid))
-                if self.with_teacher:
+                if self.with_teacher_feats:
                     s_feats.append(self._replay_feats(classes[sl], s_vid))
                     q_feats.append(self._replay_feats(classes[ql], q_vid))
             else:
                 s_clips.append(self._draw_frames(rng, classes[sl]))
                 q_clips.append(self._draw_frames(rng, classes[ql]))
-                if self.with_teacher:
+                if self.with_teacher_feats:
                     s_feats.append(self._draw_feats(rng, classes[sl]))
                     q_feats.append(self._draw_feats(rng, classes[ql]))
             s_labels.append(sl)
             q_labels.append(ql)
         kw = {}
-        if self.with_teacher:
+        if self.with_teacher_feats:
             kw = dict(support_feats=np.stack(s_feats),
                       query_feats=np.stack(q_feats))
         return EpisodeBatch(

@@ -277,12 +277,20 @@ class VideoStore:
     def split(self, train: bool) -> SplitIndex:
         return self.train_split if train else self.test_split
 
-    def load(self, rec: VideoRecord, train: bool,
-             rng: np.random.Generator) -> np.ndarray:
-        """``rec``'s clip: the episodic readers' trimmed linspace of frames
-        (:func:`sample_frame_indices`); ``train`` picks the pixel transforms
-        (flip and random crop, or centre crop)."""
-        idxs = sample_frame_indices(rec.n_frames, self.seq_len, train, rng)
+    def load(self, rec: VideoRecord, train: bool, rng: np.random.Generator,
+             frame_rule: str = "episode") -> np.ndarray:
+        """``rec``'s clip. ``frame_rule``: "episode", the episodic readers'
+        trimmed linspace of frames (:func:`sample_frame_indices`), or
+        "aux", AuxDataset's plain linspace (:func:`sample_frame_indices_aux`,
+        pretraining and expert extraction). ``train`` picks the pixel
+        transforms under both rules (flip and random crop, or centre
+        crop)."""
+        if frame_rule == "aux":
+            idxs = sample_frame_indices_aux(rec.n_frames, self.seq_len)
+        elif frame_rule == "episode":
+            idxs = sample_frame_indices(rec.n_frames, self.seq_len, train, rng)
+        else:
+            raise ValueError(f"unknown frame_rule {frame_rule!r}")
         return self._load(rec.frame_paths, idxs, train, rng, self.zip_store)
 
     def load_view(self, rec: VideoRecord, view: str, train: bool,

@@ -1,6 +1,7 @@
 """Student and teacher episode models and the selection registries
 (port of ``litemkd_tpu/models/student.py:43-68, 88-141, 144-186, 224-328``),
-limited to the entries of the ported slices.
+limited to the entries of the ported slices: every ``ResNetBackbone``
+entry of the JAX registry, and the TRX heads.
 
 A whole batch of episodes goes through one model call: the trunk sees one
 fused (episodes × videos × frames) image batch, context and target clips
@@ -24,8 +25,22 @@ from .backbones.resnet import ResNetBackbone
 from .classifiers.trx import TRX, TRX_2fcsup, TRX_2fcsup_fixed
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
+    "resnet18_student": partial(ResNetBackbone, depth=18, num_fc=1,
+                                fc_name="res18_2048"),
     "resnet18_2fc": partial(ResNetBackbone, depth=18, num_fc=2),
+    "resnet34_student": partial(ResNetBackbone, depth=34, num_fc=1,
+                                fc_name="res18_2048"),
     "resnet34_2fc": partial(ResNetBackbone, depth=34, num_fc=2),
+    "resnet50_student": partial(ResNetBackbone, depth=50, num_fc=0),
+    # run.py expert trunks at --method resnet18/34 (model.py:551-556):
+    # adaptive-max patch-mean features at the trunk width, no fc
+    "resnet18_expert": partial(ResNetBackbone, depth=18, num_fc=0),
+    "resnet34_expert": partial(ResNetBackbone, depth=34, num_fc=0),
+    "resnet50_gap": partial(ResNetBackbone, depth=50, num_fc=0, pool="gap"),
+    "resnet18_gap": partial(ResNetBackbone, depth=18, num_fc=0, pool="gap"),
+    "resnet50_2fc": partial(ResNetBackbone, depth=50, num_fc=2),
+    "meta_baseline": partial(ResNetBackbone, depth=50, num_fc=1, fc_name="fc"),
+    "meta_baseline_fc2": partial(ResNetBackbone, depth=50, num_fc=2),
 }
 
 CLASSIFIERS: Dict[str, Any] = {
@@ -82,7 +97,8 @@ def make_backbone(name: str, cfg: Config) -> nn.Module:
     return BACKBONES[name](out_dim=cfg.model.trans_linear_in_dim,
                            compute_dtype=compute_dtype(cfg),
                            pallas_bn=cfg.model.pallas_bn,
-                           freeze_bn=cfg.model.freeze_bn)
+                           freeze_bn=cfg.model.freeze_bn,
+                           remat=cfg.model.remat)
 
 
 def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -241,6 +241,10 @@ class BatchNorm(nn.BatchNorm2d):
       updates with the unbiased one; on the ``F.batch_norm`` path the
       update is corrected per channel, rv = 0.9·rv_old + (rv_torch −
       0.9·rv_old)·(n−1)/n with n = N·H·W.
+    - ``recomputing``: set while a rematerialized block runs its forward
+      again in the backward pass (``ResNetTrunk(remat=True)``); that run
+      computes the same batch statistics and updates nothing, as flax's
+      remat discards the mutation of its recompute.
     The parameters and buffers keep ``nn.BatchNorm2d``'s names, so
     reference-layout state dicts load unchanged; ``momentum`` is torch's
     0.1 (flax 0.9)."""
@@ -250,26 +254,32 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(channels, eps=eps, momentum=0.1)
         self.pallas_bn = pallas_bn
         self.freeze_bn = freeze_bn
+        self.recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.freeze_bn:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        self.num_batches_tracked.add_(1)
+        update = not self.recomputing
+        if update:
+            self.num_batches_tracked.add_(1)
         m = self.momentum
         if self.pallas_bn:
             n, c, h, w = x.shape
             y, mean, var = batch_norm_train(channels_last_rows(x), self.weight,
                                             self.bias, self.eps)
-            with torch.no_grad():
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var, alpha=m)
+            if update:
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m).add_(var, alpha=m)
             return y.view(n, h, w, c).permute(0, 3, 1, 2)
         # F.batch_norm updates copies (the op keeps them for its backward,
         # so the buffers themselves must not change under it)
         n = x.numel() // x.shape[1]
         rm, rv = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, rm, rv, self.weight, self.bias, True, m, self.eps)
+        if not update:
+            return y
         with torch.no_grad():
             keep = self.running_var * (1 - m)
             self.running_mean.copy_(rm)

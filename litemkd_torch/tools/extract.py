@@ -1,10 +1,18 @@
-"""Fused-feature extraction with the MFM teacher (port of
-``extract_mfm_features``, ``litemkd_tpu/tools/extract.py:122-180``; the
-reference's ``extract_multi_feature.py:113-121``).
+"""Feature extraction: per-video expert features and fused MFM features
+(port of ``extract_expert_features`` and ``extract_mfm_features``,
+``litemkd_tpu/tools/extract.py:71-180``; the reference's
+``extract_feature.py:80-92`` and ``extract_multi_feature.py:113-121``).
 
-Writes ``<out>/<class>/<video>/feature.npy``, one fused (T, D) array a video
-of both splits: the ``teacher_path`` tree that the student's distillation
-reads. Expert (per-modality trunk) extraction is not ported yet.
+Both write ``<out>/<class>/<video>/feature.npy``, one (T, D) fp32 array a
+video of both splits: per-modality trunk features (the ``<modality>`` trees
+that the MFM teacher reads), or fused features (the ``teacher_path`` tree
+that the student's distillation reads). A :class:`Prefetcher` thread
+assembles batch k+1 and copies it from pinned memory while the device runs
+batch k, and batch k's results are read back and saved only after batch
+k+1 has been dispatched (:class:`DeferredHostSync`). Then the first training
+video runs again alone and must match its saved file within
+max(1e-4, 1e-2·max|saved|), the JAX package's self-consistency check; a
+mismatch raises.
 """
 from __future__ import annotations
 
@@ -15,6 +23,8 @@ import torch
 from ..data.features import MultiModalFeatureStore
 from ..data.prefetch import DeferredHostSync, Prefetcher
 from ..data.splits import SplitIndex
+from ..data.video import VideoStore
+from ..models.backbones.classifier_net import ActionRecognitionNet
 from ..models.teacher import MFMTeacher
 from ..train.loop import move_to_device
 
@@ -84,13 +94,72 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
         rec = next(_iter_records(store.split(True)))
         fresh = fuse(move_to_device({m: np.stack([store.load(rec, m, True)])
                                      for m in store.modalities}, device))
-        fresh = fresh[0].float().cpu().numpy()
-        saved = np.load(os.path.join(out_root, class_names[rec.class_id],
-                                     rec.video_id, "feature.npy"))
-        tol = max(1e-4, 1e-2 * float(np.abs(saved).max()))
-        if not np.allclose(fresh, saved, rtol=0.0, atol=tol):
-            raise RuntimeError(
-                "extraction self-consistency check failed: "
-                f"max|Δ|={np.abs(fresh - saved).max():.3e} "
-                f"(‖saved‖∞={np.abs(saved).max():.3e}, tol={tol:.3e})")
+        _check_saved(fresh[0].float().cpu().numpy(), out_root,
+                     class_names[rec.class_id], rec.video_id)
+    return count
+
+
+def _check_saved(fresh: np.ndarray, out_root: str, class_name: str,
+                 video_id: str) -> None:
+    """The self-consistency check: ``fresh`` against the saved file within
+    max(1e-4, 1e-2·max|saved|). A bf16 trunk rounds differently at another
+    batch shape, so the bound scales with the features; a pairing or shape
+    fault exceeds it by orders of magnitude."""
+    saved = np.load(os.path.join(out_root, class_name, video_id, "feature.npy"))
+    tol = max(1e-4, 1e-2 * float(np.abs(saved).max()))
+    if fresh.shape != saved.shape:
+        raise RuntimeError(
+            "extraction self-consistency check failed on "
+            f"{class_name}/{video_id}: shape {fresh.shape}, saved {saved.shape}")
+    if not np.allclose(fresh, saved, rtol=0.0, atol=tol):
+        raise RuntimeError(
+            "extraction self-consistency check failed on "
+            f"{class_name}/{video_id}: max|Δ|={np.abs(fresh - saved).max():.3e} "
+            f"(‖saved‖∞={np.abs(saved).max():.3e}, tol={tol:.3e})")
+
+
+def extract_expert_features(video_store: VideoStore, model: ActionRecognitionNet,
+                            out_root: str, batch_size: int) -> int:
+    """Every video of both splits through ``model.expert_features`` (4×4
+    adaptive max-pool, 16-patch mean) on the model's device in batches of
+    ``batch_size`` clips, written under the store's class names; returns
+    the number of videos written. Clips take the aux frame rule with centre
+    crops (the reference extracts through ``AuxDataset`` in test mode)."""
+    device = next(model.parameters()).device
+    class_names = video_store.class_names
+    model.eval()
+    rng = np.random.default_rng(0)
+    jobs = []
+    for train in (True, False):
+        records = list(_iter_records(video_store.split(train)))
+        jobs += [records[i:i + batch_size]
+                 for i in range(0, len(records), batch_size)]
+
+    def load(rec):
+        return video_store.load(rec, False, rng, frame_rule="aux")
+
+    def features(clips):
+        with torch.inference_mode():
+            return model.expert_features(clips)
+
+    count = 0
+
+    def sink(recs, feats):
+        nonlocal count
+        for rec, f in zip(recs, feats.float().cpu().numpy()):
+            _save_feature(out_root, class_names[rec.class_id], rec.video_id, f)
+            count += 1
+
+    deferred = DeferredHostSync(sink)
+    for i, clips in enumerate(Prefetcher(
+            lambda i: np.stack([load(r) for r in jobs[i]]), len(jobs),
+            transfer=lambda b: move_to_device(b, device))):
+        deferred.push(jobs[i], features(clips))
+    deferred.flush()
+
+    if count:
+        rec = next(_iter_records(video_store.split(True)))
+        fresh = features(move_to_device(load(rec)[None], device))
+        _check_saved(fresh[0].float().cpu().numpy(), out_root,
+                     class_names[rec.class_id], rec.video_id)
     return count

@@ -1,16 +1,19 @@
-"""Carry JAX student, teacher and MFM weights across into the reference
-torch key layout, and load reference teachers into the port.
+"""Carry JAX weights across into the reference torch key layout, and read
+reference and torchvision ``.pt`` files into the port.
 
 The port's own code for what ``litemkd_tpu/tools/torch_export.py:35-322``
-and ``torch_import.py:32-44, 199-339`` do: it takes the JAX
+and ``torch_import.py:32-44, 199-339, 407-630`` do: it takes the JAX
 ``{"params", "batch_stats"}`` tree as numpy arrays (no JAX needed) and
 returns the state dict of a reference-layout student, which is also the
 port's ``BatchedStudent`` layout:
 
 - ``backbone.resnet.<seq>.…``: the trunk under the reference's
   ``nn.Sequential`` indices (0 conv1, 1 bn1, 4-7 layer1-layer4);
-- ``backbone.fc1`` / ``backbone.fc2``;
+- ``backbone.fc1`` / ``backbone.fc2``, or the lone head of a 1-fc
+  backbone (``backbone.res18_2048``, ``backbone.fc``), or none;
 - ``classifier.transformers.{k_linear, v_linear, norm_k, norm_v, pe.pe}``.
+
+An ``ActionRecognitionNet`` goes to ``convnet.<seq>.…`` and ``fc``.
 
 Conversions: Dense kernel (in, out) → Linear weight (out, in); conv HWIO →
 OIHW; BN scale/bias and mean/var → weight/bias and running stats
@@ -18,20 +21,31 @@ OIHW; BN scale/bias and mean/var → weight/bias and running stats
 ``pe.pe`` the (1, int(1.5·seq_len), D) sinusoidal table; an MFM
 encoder layer's q, k and v projections stack into the (3d, d)
 ``in_proj_weight`` of torch's ``nn.MultiheadAttention``.
+
+Importers: a torchvision resnet zoo file (``conv1.weight``,
+``layer1.0.conv1.weight``, …), the reference's pretrain artifact
+(``convnet.N.*``), its run.py expert artifact (``resnet.N.*`` and
+``transformers.{i}.*``), a ``trunk.``-prefixed trunk and a full student
+(``backbone.*``, ``classifier.*``) become PARTIAL state dicts, which
+:func:`merge_state_dict` lays over a fresh model's. A file whose trunk has
+another depth than the model's raises, as does a key the model lacks.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..models.student import BACKBONES
 from ..ops.positional import sinusoidal_pe
 
-_STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+_STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
+_BLOCK_LAYERS = {18: ("1", "2"), 34: ("1", "2"), 50: ("1", "2", "3")}
 _SEQ = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6",
         "layer4": "7"}
+_TRUNK_HEADS = set(_SEQ) | set(_SEQ.values())
 
 
 def _np(x) -> np.ndarray:
@@ -67,10 +81,10 @@ def _trunk(sd, params, stats, depth, prefix):
         for b in range(n_blocks):
             bp, bs = params[f"layer{i + 1}_{b}"], stats[f"layer{i + 1}_{b}"]
             dst = f"{prefix}{_SEQ[f'layer{i + 1}']}.{b}"
-            for conv in ("conv1", "conv2"):
-                _conv(sd, f"{dst}.{conv}.weight", bp[conv])
-            for bn in ("bn1", "bn2"):
-                _bn(sd, f"{dst}.{bn}", bp[bn], bs[bn])
+            for j in _BLOCK_LAYERS[depth]:
+                _conv(sd, f"{dst}.conv{j}.weight", bp[f"conv{j}"])
+            for j in _BLOCK_LAYERS[depth]:
+                _bn(sd, f"{dst}.bn{j}", bp[f"bn{j}"], bs[f"bn{j}"])
             if "downsample_conv" in bp:
                 _conv(sd, f"{dst}.downsample.0.weight", bp["downsample_conv"])
                 _bn(sd, f"{dst}.downsample.1", bp["downsample_bn"],
@@ -82,16 +96,34 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def backbone_state_dict_from_jax(params: dict, stats: dict, depth: int = 18
-                                 ) -> Dict[str, torch.Tensor]:
-    """JAX ``ResNetBackbone`` params/batch_stats (2fc) → ``ResNetBackbone``
-    keys (``resnet.<seq>.…``, ``fc1``, ``fc2``)."""
+def _check_depth(depth: int) -> None:
     if depth not in _STAGE_BLOCKS:
-        raise ValueError(f"resnet depth {depth} is not ported (18, 34)")
+        raise ValueError(f"resnet depth {depth} is not ported (18, 34, 50)")
+
+
+def backbone_state_dict_from_jax(params: dict, stats: dict, depth: int = 18,
+                                 fc_names: Sequence[str] = ("fc1", "fc2")
+                                 ) -> Dict[str, torch.Tensor]:
+    """JAX ``ResNetBackbone`` params/batch_stats → ``ResNetBackbone`` keys
+    (``resnet.<seq>.…`` and the heads): the JAX ``fc1`` and ``fc2`` go to
+    ``fc_names`` in order (the port module's ``fc_names``)."""
+    _check_depth(depth)
     sd: Dict[str, np.ndarray] = {}
     _trunk(sd, params["trunk"], stats["trunk"], depth, "resnet.")
-    for fc in ("fc1", "fc2"):
-        _lin(sd, fc, params[fc])
+    for src, dst in zip(("fc1", "fc2"), fc_names):
+        _lin(sd, dst, params[src])
+    return _tensors(sd)
+
+
+def classifier_net_state_dict_from_jax(variables: dict, depth: int
+                                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``ActionRecognitionNet`` variables → the reference's
+    ``Action_Recognition_Resnet50`` keys (``convnet.<seq>.…``, ``fc``)."""
+    _check_depth(depth)
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _trunk(sd, params["trunk"], stats["trunk"], depth, "convnet.")
+    _lin(sd, "fc", params["fc"])
     return _tensors(sd)
 
 
@@ -111,24 +143,29 @@ def tct_state_dict_from_jax(tct: dict, d_model: int, max_len: int
     return _tensors(sd)
 
 
+def backbone_geometry(name: str) -> Tuple[int, Tuple[str, ...]]:
+    """(trunk depth, head names) of the ``BACKBONES`` entry ``name``."""
+    if name not in BACKBONES:
+        raise ValueError(f"backbone {name!r} is not ported: the port has "
+                         f"{sorted(BACKBONES)}")
+    kw = BACKBONES[name].keywords
+    names = ((), (kw.get("fc_name", "fc1"),), ("fc1", "fc2"))[kw["num_fc"]]
+    return kw["depth"], names
+
+
 def student_state_dict_from_jax(variables: dict, cfg: Config
                                 ) -> Dict[str, torch.Tensor]:
     """JAX ``BatchedStudent``/``Student`` variables (numpy leaves) of a
-    resnet18/34 2fc backbone with a single-TCT TRX head → reference-layout
-    torch state dict."""
+    resnet backbone with a single-TCT TRX head → reference-layout torch
+    state dict."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    backbone = cfg.model.backbone
-    if not backbone.startswith(("resnet18", "resnet34")) or \
-            "fc2" not in params["backbone"]:
-        raise ValueError(f"backbone {backbone!r} is not ported: the port "
-                         "has resnet18_2fc and resnet34_2fc")
-    depth = 34 if backbone.startswith("resnet34") else 18
+    depth, fc_names = backbone_geometry(cfg.model.backbone)
     tct = params["classifier"]["transformers"]
     if "k_linear" not in tct:
         raise ValueError("multi-set TCT heads are not ported")
     sd = {f"backbone.{k}": v for k, v in backbone_state_dict_from_jax(
-        params["backbone"], stats["backbone"], depth).items()}
+        params["backbone"], stats["backbone"], depth, fc_names).items()}
     sd.update({f"classifier.transformers.{k}": v for k, v in
                tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
                                        int(1.5 * cfg.episode.seq_len)).items()})
@@ -261,4 +298,160 @@ def load_reference_mfm_state_dict(path: str, cfg: Config
             f"{path}: checkpoint has more TCT sets than temp_set="
             f"{cfg.model.temp_set}; pass --temp_set matching the trained "
             "teacher")
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Partial imports: torchvision, pretrain and expert files
+# ---------------------------------------------------------------------------
+
+def merge_state_dict(template: Dict[str, torch.Tensor],
+                     overrides: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """``template`` (a fresh model's state dict) with the entries of a
+    PARTIAL import laid over it (the JAX package's
+    ``deep_merge_variables``, ``litemkd_tpu/utils/tree.py:7-40``). A key the
+    template lacks, or a shape it does not have, raises: a drifted layout
+    would otherwise leave the intended weights at their random init while
+    the load reports success."""
+    out = dict(template)
+    for k, v in overrides.items():
+        if k not in out:
+            raise KeyError(
+                f"warm-start key {k!r} does not exist in the model's state "
+                f"dict (it has {sorted(out)[:8]}…) — the imported "
+                "checkpoint's layout does not match this model")
+        if tuple(v.shape) != tuple(out[k].shape):
+            raise ValueError(f"warm-start key {k!r} has shape "
+                             f"{tuple(v.shape)}, the model {tuple(out[k].shape)}")
+        out[k] = v
+    return out
+
+
+def _seq_trunk(sd: Dict[str, torch.Tensor], prefix: str = ""
+               ) -> Dict[str, torch.Tensor]:
+    """The resnet trunk entries of ``sd`` under ``prefix``, keyed by the
+    reference's ``nn.Sequential`` indices (torchvision's attribute names
+    ``conv1``, ``bn1``, ``layerN`` are rewritten); heads and
+    ``num_batches_tracked`` are left out, as the JAX importer leaves them."""
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix) or k.endswith("num_batches_tracked"):
+            continue
+        parts = k[len(prefix):].split(".")
+        if parts[0] not in _TRUNK_HEADS:
+            continue
+        parts[0] = _SEQ.get(parts[0], parts[0])
+        out[".".join(parts)] = v
+    return out
+
+
+def _trunk_depth(trunk: Dict[str, torch.Tensor]) -> int:
+    """Depth of a sequence-keyed resnet trunk from its blocks: a bottleneck
+    conv3 means 50, a third block in layer1 34, else 18."""
+    if "4.0.conv3.weight" in trunk:
+        return 50
+    if "4.2.conv1.weight" in trunk:
+        return 34
+    return 18
+
+
+def _is_torchvision_resnet(sd: Dict[str, torch.Tensor]) -> bool:
+    """A raw torchvision resnet zoo state dict (no wrapper prefix)."""
+    return "conv1.weight" in sd and "layer1.0.conv1.weight" in sd
+
+
+def _trunk_import(sd: Dict[str, torch.Tensor], prefix: str, depth: int,
+                  path: str, what: str) -> Dict[str, torch.Tensor]:
+    trunk = _seq_trunk(sd, prefix)
+    have = _trunk_depth(trunk)
+    if have != depth:
+        # resnet34 basic blocks fit shape for shape into resnet18, so a
+        # depth mismatch would load wrong weights silently
+        raise ValueError(f"{path} holds resnet{have} weights but {what} "
+                         f"needs resnet{depth}")
+    return trunk
+
+
+def load_pretrain_init(path: str, arch: str) -> Dict[str, torch.Tensor]:
+    """Warm-start weights for an ``ActionRecognitionNet`` of ``arch``
+    (``litemkd_tpu/tools/torch_import.py:407-452``): the trunk of a
+    torchvision zoo file, of a ``trunk.``-prefixed file, of the reference's
+    pretrain artifact (``convnet.``, also the port's own pretrain
+    checkpoint) or of its run.py expert artifact (``resnet.``), as a
+    PARTIAL state dict under ``convnet.`` (no classifier head)."""
+    if arch == "deit_small":
+        raise NotImplementedError(
+            "deit_small (ViTClassifier, import_deit_trunk) is not ported yet "
+            "(ROADMAP queue 5); the port pretrains resnet18/34/50")
+    depth = int(arch.replace("resnet", ""))
+    sd = load_reference_state_dict(path)
+    if _is_torchvision_resnet(sd):
+        prefix = ""
+    elif "features.0.0.weight" in sd:
+        raise ValueError(f"{path} is a mobilenet zoo checkpoint; the "
+                         f"pretraining stage warm-starts resnet trunks only "
+                         f"(--arch {arch})")
+    else:
+        prefix = next((p for p in ("trunk.", "convnet.", "resnet.")
+                       if any(k.startswith(p) for k in sd)), None)
+        if prefix is None:
+            raise ValueError(f"{path} is not a resnet zoo / pretrain checkpoint")
+    trunk = _trunk_import(sd, prefix, depth, path, f"--arch {arch}")
+    return {f"convnet.{k}": v for k, v in trunk.items()}
+
+
+def _tct_import(sd: Dict[str, torch.Tensor], prefix: str
+                ) -> Dict[str, torch.Tensor]:
+    """The TCT weights the JAX importer reads (``k_linear``, ``v_linear``,
+    ``norm_k``) from under ``prefix``, as the port's
+    ``classifier.transformers`` keys."""
+    return {f"classifier.transformers.{k}": sd[f"{prefix}.{k}"]
+            for k in ("k_linear.weight", "k_linear.bias", "v_linear.weight",
+                      "v_linear.bias", "norm_k.weight", "norm_k.bias")}
+
+
+def _expert_import(sd, depth, path, backbone):
+    """A run.py expert artifact (``litemkd_tpu/tools/torch_import.py:546-562``):
+    its trunk under ``resnet.`` and its one TCT (``transformers.0``)."""
+    out = {f"backbone.resnet.{k}": v for k, v in
+           _trunk_import(sd, "resnet.", depth, path, f"backbone {backbone!r}").items()}
+    if "transformers.1.k_linear.weight" in sd:
+        raise NotImplementedError(
+            f"{path} holds several TCT sets; multi-set heads are not ported "
+            "yet (ROADMAP queue 6)")
+    if "transformers.0.k_linear.weight" in sd:
+        out.update(_tct_import(sd, "transformers.0"))
+    return out
+
+
+def load_student_checkpoint(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
+    """A ``.pt`` file as a (maybe PARTIAL) ``BatchedStudent`` state dict, by
+    the routes of ``litemkd_tpu/tools/torch_import.py:565-630`` that this
+    port has: a torchvision resnet zoo file (the trunk only, the reference's
+    ``pretrained=True``), a run.py expert artifact (``resnet.N.*`` and
+    ``transformers.0``), or a full
+    reference student (``backbone.*``, ``classifier.*``, with DataParallel
+    ``module.`` segments dropped). A trunk of another depth than the
+    configured backbone's raises; CTX, S3D and mobilenet artifacts are not
+    ported yet."""
+    sd = load_reference_state_dict(path)
+    backbone = cfg.model.backbone
+    depth, _ = backbone_geometry(backbone)
+    if _is_torchvision_resnet(sd):
+        return {f"backbone.resnet.{k}": v for k, v in _trunk_import(
+            sd, "", depth, path, f"backbone {backbone!r}").items()}
+    for key, kind in (("time_trans.positionEncoding.position_embeddings.weight",
+                       "CTX"), ("encoder.t_embedding.0.weight", "S3D skeleton"),
+                      ("features.0.0.weight", "mobilenet")):
+        if key in sd:
+            raise NotImplementedError(f"{path} is a {kind} artifact; its "
+                                      "importer is not ported yet (ROADMAP "
+                                      "queue 6)")
+    if not any(k.startswith("backbone.") for k in sd):
+        if any(k.startswith("resnet.") for k in sd):
+            return _expert_import(sd, depth, path, backbone)
+        raise ValueError(f"{path} is not a student, expert or torchvision "
+                         "resnet checkpoint")
+    _trunk_import(sd, "backbone.resnet.", depth, path, f"backbone {backbone!r}")
     return sd

@@ -96,9 +96,12 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
     """Student training for ``cfg.train.training_iterations`` episodes in
     batches of ``tasks_per_batch``; returns ``(state, eval_history)``.
 
-    ``sampler.sample_batch(rng, n, train)`` yields numpy EpisodeBatches.
-    ``student_state_dict`` / ``teacher_state_dict`` (reference layout)
-    warm-start the models; otherwise they get random weights from the seed.
+    ``sampler.sample_batch(rng, n, train)`` yields numpy EpisodeBatches;
+    where ``sampler.with_teacher_feats`` is false they carry no teacher
+    features and the student trains teacher-free, as in the JAX package.
+    ``student_state_dict`` (reference layout, possibly a trunk alone) and
+    ``teacher_state_dict`` warm-start the models; otherwise they get random
+    weights from the seed.
     With ``cfg.train.checkpoint_dir`` a checkpoint is written every
     ``save_freq`` episodes and at the end, and ``resume_from_checkpoint``
     continues from the newest one. At each of ``test_iters`` the student is
@@ -108,7 +111,8 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
     state = create_train_state(cfg, device,
                                student_state_dict=student_state_dict,
                                teacher_state_dict=teacher_state_dict,
-                               episodes_per_step=cfg.train.tasks_per_batch)
+                               episodes_per_step=cfg.train.tasks_per_batch,
+                               with_teacher=sampler.with_teacher_feats)
     history = train_loop(cfg, state, sampler, make_train_step(cfg),
                          make_eval_step(cfg), logger, device=device,
                          eval_sampler=eval_sampler)

@@ -19,6 +19,7 @@ from ..config import Config
 from ..distill import get_distiller, merge_logits
 from ..models import BatchedStudent, BatchedTeacher, init_student_
 from ..ops.positional import bind_dropout_generator
+from ..tools.weights import merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .schedule import make_optimizer
 
@@ -49,8 +50,9 @@ class TrainState:
     the trained model and, for the student, the frozen teacher, the
     optimizer and its schedule, and the generators that draw the model's
     and the teacher's dropout masks. A run without a teacher (the MFM
-    teacher's own training) has ``teacher`` and ``teacher_generator``
-    None."""
+    teacher's own training, the pretrain stage, a student trained on
+    batches without teacher features) has ``teacher`` and
+    ``teacher_generator`` None."""
 
     step: int
     episodes_seen: int
@@ -71,31 +73,38 @@ def dropout_seeds(seed: int) -> Tuple[int, int]:
 def create_train_state(cfg: Config, device, *,
                        student_state_dict: Optional[Dict] = None,
                        teacher_state_dict: Optional[Dict] = None,
-                       episodes_per_step: Optional[int] = None) -> TrainState:
-    """A fresh state on ``device``. The student and the teacher get random
-    weights from ``cfg.train.seed`` (seed and seed + 1), or the given
-    reference-layout state dicts (strict). The teacher is frozen. The
-    dropout generators live on ``device``, seeded by
-    :func:`dropout_seeds`."""
+                       episodes_per_step: Optional[int] = None,
+                       with_teacher: bool = True) -> TrainState:
+    """A fresh state on ``device``. The student gets random weights from
+    ``cfg.train.seed``, with ``student_state_dict`` (reference layout,
+    possibly PARTIAL: a trunk alone) laid over them
+    (:func:`~litemkd_torch.tools.weights.merge_state_dict`). With
+    ``with_teacher`` the frozen teacher gets random weights from seed + 1
+    or ``teacher_state_dict`` (strict); without it (batches that carry no
+    teacher features) there is none, as the JAX package's
+    ``create_train_state`` leaves ``t_vars`` None. The dropout generators
+    live on ``device``, seeded by :func:`dropout_seeds`."""
     device = torch.device(device)
     seed = cfg.train.seed
     model = BatchedStudent(cfg)
+    init_student_(model, torch.Generator().manual_seed(seed))
     if student_state_dict is not None:
-        model.load_state_dict(student_state_dict, strict=True)
-    else:
-        init_student_(model, torch.Generator().manual_seed(seed))
+        model.load_state_dict(merge_state_dict(model.state_dict(),
+                                               student_state_dict), strict=True)
     model.to(device).train()
     model_seed, teacher_seed = dropout_seeds(seed)
     generator = torch.Generator(device=device).manual_seed(model_seed)
     bind_dropout_generator(model, generator)
-    teacher = BatchedTeacher(cfg)
-    if teacher_state_dict is not None:
-        teacher.load_state_dict(teacher_state_dict, strict=True)
-    else:
-        init_student_(teacher, torch.Generator().manual_seed(seed + 1))
-    teacher.requires_grad_(False).to(device).train()
-    teacher_generator = torch.Generator(device=device).manual_seed(teacher_seed)
-    bind_dropout_generator(teacher, teacher_generator)
+    teacher = teacher_generator = None
+    if with_teacher:
+        teacher = BatchedTeacher(cfg)
+        if teacher_state_dict is not None:
+            teacher.load_state_dict(teacher_state_dict, strict=True)
+        else:
+            init_student_(teacher, torch.Generator().manual_seed(seed + 1))
+        teacher.requires_grad_(False).to(device).train()
+        teacher_generator = torch.Generator(device=device).manual_seed(teacher_seed)
+        bind_dropout_generator(teacher, teacher_generator)
     opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),
                                 cfg.train.learning_rate, cfg.train.sch,
                                 cfg.train.sch_gamma,
@@ -143,10 +152,14 @@ def make_train_step(cfg: Config) -> Callable:
         out = state.model(chunk.support_clips, chunk.support_labels,
                           chunk.query_clips)
         s_logits = out["logits"]
-        with torch.no_grad():
-            t_logits = state.teacher(chunk.support_feats, chunk.support_labels,
-                                     chunk.query_feats)["logits"]
-        per_ep = [distill(_episode(s_logits, i), _episode(t_logits, i),
+        t_logits = None
+        if state.teacher is not None:
+            with torch.no_grad():
+                t_logits = state.teacher(chunk.support_feats, chunk.support_labels,
+                                         chunk.query_feats)["logits"]
+        # teacher-free losses (ce, TRXLoss) ignore the teacher argument
+        per_ep = [distill(_episode(s_logits, i),
+                          None if t_logits is None else _episode(t_logits, i),
                           chunk.query_labels[i], dcfg, tpb)
                   for i in range(chunk.support_labels.shape[0])]
         stacked = {k: torch.stack([p[k] for p in per_ep]) for k in per_ep[0]}
@@ -161,7 +174,8 @@ def make_train_step(cfg: Config) -> Callable:
 
     def train_step(state: TrainState, batch: EpisodeBatch) -> Dict[str, Any]:
         state.model.train()
-        state.teacher.train()
+        if state.teacher is not None:
+            state.teacher.train()
         state.optimizer.zero_grad(set_to_none=True)
         chunks = _chunks(batch, micro)
         sums: Dict[str, torch.Tensor] = {}

@@ -46,7 +46,7 @@ from litemkd_torch.tools import weights
 from litemkd_torch.tools.extract import extract_mfm_features
 from litemkd_torch.train import (create_mfm_train_state, make_mfm,
                                  make_mfm_eval_step, make_mfm_train_step,
-                                 to_device, train_loop)
+                                 make_pretrain_model, to_device, train_loop)
 from litemkd_torch.utils.logging import MetricsLogger
 
 REPO = Path(__file__).resolve().parent.parent
@@ -492,8 +492,7 @@ def test_unported_options_raise():
         tt_cli.main(["--preset", "tiny", "--fusion", "tsf", "--device", "cpu",
                      "--debug"])
     with pytest.raises(NotImplementedError, match="queue 5"):
-        extract_cli.main(["--mode_extract", "expert", "--out", "x",
-                          "--device", "cpu"])
+        make_pretrain_model(_cfg(torch_config.preset), 5, "deit_small")
     with pytest.raises(NotImplementedError, match="queue 6"):
         extract_cli.main(["--mode_extract", "mfm", "--fusion", "tsf",
                           "--preset", "tiny", "--feature_root", "x",
