@@ -64,7 +64,22 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    extraction as its ``rgb`` modality; then the device-resident expert
    step with and without remat, on the BN kernels and on cuDNN, with peak
    memory. Phase 3 holds the TCT kernel at the expert shape (E 4, Q 20)
-   and the BN kernels at the resnet50 layer widths of one expert chunk.
+   and the BN kernels at the resnet50 layer widths of one expert chunk;
+9. the other experts, DeiT pretraining and the eval extras on the trees
+   of phases 6 and 7: full-width ``expert_strm --remat`` (the STRM trunk
+   without BN kernels, as in the JAX package) and ``expert_baseline
+   --pallas_bn --remat`` training (2 steps of 16 episodes in chunks of 4,
+   an 8-episode eval) through ``litemkd_torch.cli.train`` with the launch
+   counts derived from the modules; DeiT-small pretraining (one epoch)
+   through ``litemkd_torch.cli.pretrain --arch deit_small``, its
+   checkpoint's layout and ``load_pretrain_init`` on it; phase 6's MFM
+   checkpoint through ``litemkd_torch.cli.test --test_model teacher``
+   twice (one TCT launch each, the same summary); phase 7's checkpoint
+   through ``cli.test --per_task_log`` over its fixed-episode file (one
+   record a task in order, their mean the summary's, a confusion matrix
+   counting every query once); then the device-resident ``expert_strm``
+   and ``expert_baseline`` steps and the DeiT pretrain step with peak
+   memory. Phase 3's shapes cover these paths.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -103,7 +118,8 @@ from litemkd_torch.ops.distances import support_dk_logits
 from litemkd_torch.train import (CheckpointManager, EpisodeBatch,
                                  create_mfm_train_state,
                                  create_train_state, make_mfm_eval_step,
-                                 make_mfm_train_step, make_train_step)
+                                 make_mfm_train_step, make_pretrain_step,
+                                 make_train_step)
 from litemkd_torch.train.loop import to_device
 from litemkd_torch.utils.metrics import per_episode_accuracy
 
@@ -1347,22 +1363,52 @@ EXPERT_RATE_SETTINGS = [(True, 4, True), (True, 4, False), (False, 2, True),
                         (False, 2, False)]
 
 
+def student_tct_calls(cfg):
+    """TCT calls of one forward of ``cfg``'s student: forward hooks count
+    them on a CPU copy with the same backbone, head and widths at the tiny
+    episode geometry (32 px)."""
+    from litemkd_torch.models import BatchedStudent
+    from litemkd_torch.ops.tct import TemporalCrossTransformer
+    tiny = preset("tiny")
+    small = tiny.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="float32", pallas_bn=False))
+    model = BatchedStudent(small).eval()
+    calls = [0]
+    for m in model.modules():
+        if isinstance(m, TemporalCrossTransformer):
+            m.register_forward_hook(lambda *a: calls.__setitem__(0, calls[0] + 1))
+    batch = SyntheticEpisodeSource(small, n_classes=8, seed=0,
+                                   with_teacher_feats=False).sample_batch(
+        np.random.default_rng(0), 1, train=False)
+    b = to_device(batch, torch.device("cpu"))
+    with torch.inference_mode():
+        model(b.support_clips, b.support_labels, b.query_clips)
+    return calls[0]
+
+
 def expert_launches(cfg):
     """The kernel launches of ``cli.train`` for ``cfg`` (2 steps and an
-    ``EVAL_TASKS``-episode eval): per training chunk the student's and the
-    teacher's TCT, one ``bn_bwd_sums`` per BatchNorm and one ``bn_sums`` per
-    BatchNorm plus one per BatchNorm of a residual block recomputed under
-    ``--remat`` (all but the stem's); the eval chunks launch the student's
-    TCT only."""
+    ``EVAL_TASKS``-episode eval, with a teacher tree): per training chunk
+    the student's TCT calls (:func:`student_tct_calls`) and the frozen
+    teacher's one, one ``bn_sums`` per BN-kernel BatchNorm plus one per
+    such BatchNorm of a residual block recomputed under ``--remat`` (all but
+    the stem's), one ``bn_bwd_sums`` per BN-kernel BatchNorm; the eval
+    chunks launch the student's TCT calls only. BatchNorms without
+    ``pallas_bn`` (the STRM trunk's, as in the JAX package) launch
+    nothing."""
     from litemkd_torch.models import BatchedStudent
     from litemkd_torch.ops.batch_norm import BatchNorm
+
+    def kernel_bn(m):
+        return isinstance(m, BatchNorm) and m.pallas_bn
+
     with torch.device("meta"):
         trunk = BatchedStudent(cfg).backbone.resnet
-    n_bn = sum(isinstance(m, BatchNorm) for m in trunk.modules())
-    n_block = sum(isinstance(m, BatchNorm) for layer in list(trunk)[4:]
-                  for m in layer.modules())
+    n_bn = sum(kernel_bn(m) for m in trunk.modules())
+    n_block = sum(kernel_bn(m) for layer in list(trunk)[4:] for m in layer.modules())
     chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
-    return dict(tct_attention=2 * chunks + math.ceil(EVAL_TASKS / 8),
+    calls = student_tct_calls(cfg)
+    return dict(tct_attention=(calls + 1) * chunks + calls * math.ceil(EVAL_TASKS / 8),
                 bn_sums=(n_bn + (n_block if cfg.model.remat else 0)) * chunks,
                 bn_bwd_sums=n_bn * chunks)
 
@@ -1404,12 +1450,14 @@ def pretrain_path(label, frames, splits, ckdir):
     return saved[0]
 
 
-def expert_train_path(label, frames, splits, fused, ckdir):
-    """Full-width ``expert_trx`` training with the BN kernels and per-block
-    remat (2 steps of 16 episodes in chunks of 4, an 8-episode eval)
-    through ``cli.train`` against the fused tree, with the launch counts
-    read around it. Returns the counts."""
+def expert_train_path(label, frames, splits, fused, ckdir, argv=None):
+    """Full-width expert training (``argv``: by default ``expert_trx`` with
+    the BN kernels and per-block remat; 2 steps of 16 episodes in chunks of
+    4, an 8-episode eval) through ``cli.train`` against the fused tree,
+    with the launch counts read around it. Returns the counts."""
     from litemkd_torch.data import EpisodeSampler
+    argv = argv or EXPERT_ARGV
+    name = argv[argv.index("--preset") + 1]
     data = ["--rgb_path", str(frames), "--traintestlist", str(splits),
             "--teacher_path", str(fused)]
     draw = [0.0]
@@ -1418,27 +1466,28 @@ def expert_train_path(label, frames, splits, fused, ckdir):
     try:
         zero_counts()
         t0 = time.perf_counter()
-        _, history = cli_train.main(EXPERT_ARGV + data + ["-c", str(ckdir)])
+        _, history = cli_train.main(argv + data + ["-c", str(ckdir)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
     finally:
         EpisodeSampler.sample_batch = orig
-    want = expert_launches(cli_train.parse(EXPERT_ARGV + data)[1])
-    log(f"[expert] training launches {counts}, expected {want}")
+    want = expert_launches(cli_train.parse(argv + data)[1])
+    log(f"[expert] {name} training launches {counts}, expected {want}")
     if counts != want:
-        raise AssertionError(f"expert launch counts {counts} != {want}")
+        raise AssertionError(f"{name} launch counts {counts} != {want}")
     steps = [r for r in _train_records(ckdir) if "task_loss" in r]
     if len(steps) != TRAIN_STEPS or not all(
             math.isfinite(r[k]) for r in steps for k in r):
-        raise AssertionError(f"bad expert training metrics {steps}")
+        raise AssertionError(f"bad {name} training metrics {steps}")
     if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
-        raise AssertionError(f"bad expert mid-training eval {history}")
+        raise AssertionError(f"bad {name} mid-training eval {history}")
     n_eps = TRAIN_STEPS * TRAIN_EPISODES
-    log("[expert] per-step metrics: " + json.dumps(
-        [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
+    log(f"[expert] {name} per-step metrics: " + json.dumps(
+        [{k: r[k] for k in r if k not in ("time", "episodes")} for r in steps])
         + f"; eval {history[0]}")
-    log(f"[expert] expert_trx --pallas_bn --remat through cli.train from the JPEG tree "
+    flags = " ".join(a for a in argv if a in ("--pallas_bn", "--remat"))
+    log(f"[expert] {name} {flags} through cli.train from the JPEG tree "
         f"on {label}: {n_eps / wall:.3f} episodes/s end to end ({wall:.2f} s for "
         f"{n_eps} training + {EVAL_TASKS} eval episodes, model set-up and checkpoint "
         f"write included; host batch assembly {draw[0]:.2f} s on the prefetch "
@@ -1517,13 +1566,14 @@ def chain_eval(label, run_root, expert_out):
     return counts
 
 
-def expert_device_rate(label):
-    """The expert_trx training step on one 16-episode batch made on the card
-    (CUDA events over 3 steps after one warm-up) with peak memory, for each
-    of ``EXPERT_RATE_SETTINGS``; then one step of the first under the
-    profiler."""
-    for remat, micro, pallas_bn in EXPERT_RATE_SETTINGS:
-        base = preset(EXPERT_PRESET)
+def expert_device_rate(label, name=EXPERT_PRESET, settings=EXPERT_RATE_SETTINGS,
+                       profile=True):
+    """The training step of preset ``name`` on one 16-episode batch made on
+    the card (CUDA events over 3 steps after one warm-up) with peak memory,
+    for each (remat, micro-batch, BN kernels) of ``settings``; then, with
+    ``profile``, one step of the first under the profiler."""
+    for remat, micro, pallas_bn in settings:
+        base = preset(name)
         cfg = base.replace(
             model=dataclasses.replace(base.model, pallas_bn=pallas_bn, remat=remat),
             train=dataclasses.replace(base.train, micro_batch=micro))
@@ -1535,13 +1585,15 @@ def expert_device_rate(label):
         ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
         what = (f"{'remat' if remat else 'no remat'}, micro-batch {micro}, "
                 f"{'BN kernels' if pallas_bn else 'cuDNN BatchNorm'}")
-        log(f"[expert] device-resident expert_trx training on {label}, {what}: "
+        ep = cfg.episode
+        frames = micro * ep.way * (ep.shot + ep.query_per_class) * ep.seq_len
+        log(f"[expert] device-resident {name} training on {label}, {what}: "
             f"{1e3 * TRAIN_EPISODES / ms:.3f} episodes/s ({ms:.3f} ms per "
             f"{TRAIN_EPISODES}-episode step of {TRAIN_EPISODES // micro} chunks of "
-            f"{micro * (25 + 20) * 8} frames); peak memory "
+            f"{frames} frames); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        if (remat, micro, pallas_bn) == EXPERT_RATE_SETTINGS[0]:
-            profile_step(lambda: step(state, batch), f"expert_trx step, {what}")
+        if profile and (remat, micro, pallas_bn) == settings[0]:
+            profile_step(lambda: step(state, batch), f"{name} step, {what}")
         del state, batch
         torch.cuda.empty_cache()
 
@@ -1558,6 +1610,175 @@ def expert_main_path(label, run_root):
     chain = chain_eval(label, run_root, run_root / "rgb_expert")
     log(f"[expert] {n} videos: pretrained, expert-trained and extracted from frames")
     return {k: counts[k] + chain[k] for k in counts}
+
+
+# ---------------------------------------------------------------------------
+# The STRM and Baseline experts, DeiT pretraining and the eval extras
+# ---------------------------------------------------------------------------
+
+STRM_ARGV = ["--preset", "expert_strm", "--remat"] + EXPERT_ARGV[4:]
+BASELINE_ARGV = ["--preset", "expert_baseline", "--pallas_bn", "--remat"] + EXPERT_ARGV[4:]
+DEIT_ARGV = ["--dataset", "hmdb", "--arch", "deit_small", "--epochs", "1",
+             "--batch_size", "8", "--print_freq", "1", "--device", "cuda"]
+
+
+def deit_pretrain_path(label, frames, splits, ckdir):
+    """Full-width DeiT-small pretraining through ``cli.pretrain --arch
+    deit_small`` (one epoch, batches of 8 clips; no kernel of the port
+    runs), then its checkpoint's layout (timm's names under ``convnet.``,
+    and ``fc``) and ``load_pretrain_init(ckpt, "deit_small")`` on it."""
+    from litemkd_torch.tools.weights import load_pretrain_init
+    loads = [0.0]
+    orig = _timed(VideoStore, "load", loads)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        state = cli_pretrain.main(DEIT_ARGV + [
+            "--rgb_path", str(frames), "--traintestlist", str(splits), "-c", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        VideoStore.load = orig
+    if any(counts.values()):
+        raise AssertionError(f"deit pretraining launched kernels: {counts}")
+    epochs = [r for r in _train_records(ckdir) if "epoch_loss" in r]
+    if len(epochs) != 1 or not all(math.isfinite(v) for v in epochs[0].values()):
+        raise AssertionError(f"bad deit pretraining metrics {epochs}")
+    saved = sorted(ckdir.glob("checkpoint_*.pt"))
+    if len(saved) != 1:
+        raise AssertionError(f"deit pretraining kept {saved}")
+    sd = torch.load(saved[0], map_location="cpu", weights_only=True)["model_state_dict"]
+    block = {f"convnet.blocks.{i}.{m}.{w}" for i in range(12) for m in (
+        "norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1", "mlp.fc2")
+        for w in ("weight", "bias")}
+    layout = block | {"convnet.cls_token", "convnet.dist_token", "convnet.pos_embed",
+                      "convnet.patch_embed.proj.weight", "convnet.patch_embed.proj.bias",
+                      "convnet.norm.weight", "convnet.norm.bias", "fc.weight", "fc.bias"}
+    if set(sd) != layout or tuple(sd["convnet.blocks.0.attn.qkv.weight"].shape) != (1152, 384):
+        raise AssertionError(f"deit checkpoint layout: {sorted(set(sd) ^ layout)[:8]}")
+    part = load_pretrain_init(str(saved[0]), "deit_small")
+    if set(part) != layout - {"fc.weight", "fc.bias"} or not all(
+            torch.equal(part[k], sd[k]) for k in part):
+        raise AssertionError("load_pretrain_init did not read the deit trunk back")
+    vs = VideoStore(str(frames), str(splits), 3, 8, 224)
+    n_train = state.episodes_seen
+    n_test = sum(vs.split(False).n_videos(c) for c in vs.split(False).classes())
+    log(f"[deit] deit_small through cli.pretrain on {label}: {state.step} steps of 8 "
+        f"clips, epoch metrics {epochs[0]}; {(n_train + n_test) / wall:.3f} clips/s "
+        f"end to end ({n_train} training + {n_test} test clips of 8 frames at 224 px "
+        f"in {wall:.2f} s, model set-up and the {saved[0].stat().st_size / 1e6:.1f} MB "
+        f"checkpoint write included; host clip loads {loads[0]:.2f} s); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {saved[0].name} holds "
+        f"{len(sd)} convnet./fc. keys and load_pretrain_init reads its trunk back")
+    model = state.model.eval()
+    clips = torch.randint(0, 256, (8, 8, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    labels = torch.randint(0, model.fc.out_features, (8,), device="cuda")
+    step = make_pretrain_step(cli_pretrain.parse(DEIT_ARGV + [
+        "--rgb_path", str(frames), "--traintestlist", str(splits)])[2])
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, clips, labels), 5, warmup=1)
+    log(f"[deit] device-resident deit_small pretrain step on {label}: "
+        f"{8e3 / ms:.3f} clips/s ({ms:.3f} ms per step of 8 clips of 8 frames at "
+        f"224 px, bf16 autocast); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del state, model, clips
+    torch.cuda.empty_cache()
+
+
+def teacher_eval_path(label, run_root):
+    """``cli.test --test_model teacher`` of phase 6's MFM checkpoint (its
+    ``bracnch.transformers.0`` head) over phase 6's fused tree, the
+    sampler decoding phase 7's clips too: one TCT launch per eval chunk,
+    and a second run gives the same accuracy and CI. Returns the launch
+    counts of the first run."""
+    from litemkd_torch.data import EpisodeSampler
+    ckpt = run_root / "mfm" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    argv = ["--test_model", "teacher", "-m", str(ckpt), "--dataset", "hmdb",
+            "--rgb_path", str(run_root / "frames"), "--teacher_path",
+            str(run_root / "fused"), "--traintestlist", str(run_root / "tree" / "splits"),
+            "--num_test_tasks", str(EVAL_TASKS), "--device", "cuda"]
+    runs = []
+    for _ in range(2):
+        draw = [0.0]
+        orig = _timed(EpisodeSampler, "sample_batch", draw)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            summary = cli_test.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            EpisodeSampler.sample_batch = orig
+        runs.append((summary, read_counts(), wall, draw[0]))
+    want = dict(tct_attention=math.ceil(EVAL_TASKS / 8), bn_sums=0, bn_bwd_sums=0)
+    (s1, c1, wall, draw), (s2, c2, _, _) = runs
+    log(f"[teacher] cli.test --test_model teacher of {ckpt.name} over the fused tree "
+        f"on {label}: {s1}, then {s2}; launches {c1} and {c2}, expected {want}; "
+        f"{EVAL_TASKS / wall:.3f} episodes/s end to end ({wall:.2f} s, host batch "
+        f"assembly {draw:.2f} s with the clips)")
+    if c1 != want or c2 != want:
+        raise AssertionError(f"teacher eval launches {c1}, {c2} != {want}")
+    if s1 != s2 or s1["n_tasks"] != EVAL_TASKS or not math.isfinite(s1["accuracy"]):
+        raise AssertionError(f"teacher eval runs differ: {s1} vs {s2}")
+    return c1
+
+
+def per_task_log_path(label, run_root):
+    """``cli.test --per_task_log`` of phase 7's student checkpoint over its
+    fixed-episode file: one record per task in task order, whose mean
+    accuracy is the summary's, and a confusion matrix that counts every
+    query once. Returns the launch counts."""
+    from litemkd_torch.tools.confusion import (confusion_from_records,
+                                               most_confused, read_task_log)
+    ckpt = run_root / "video_run" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    path = run_root / "tasks.jsonl"
+    zero_counts()
+    summary = cli_test.main([
+        "-m", str(ckpt), "--fixed_episode_file", str(run_root / "fixed_test.json"),
+        "--per_task_log", str(path), "--rgb_path", str(run_root / "frames"),
+        "--traintestlist", str(run_root / "tree" / "splits"), "--device", "cuda"])
+    counts = read_counts()
+    records = read_task_log(str(path))
+    m, ids = confusion_from_records(records)
+    cfg = cli_test.parse(["-m", str(ckpt)])[1]
+    n_queries = REPLAY_TASKS * cfg.episode.way * cfg.episode.query_per_class_test
+    mean = 100.0 * float(np.mean([r["accuracy"] for r in records]))
+    log(f"[tasks] cli.test --per_task_log of {ckpt.name} over the fixed file on "
+        f"{label}: {summary}; {len(records)} records, mean accuracy {mean:.6f}; "
+        f"confusion matrix {m.shape} over {int(m.sum())} queries, trace "
+        f"{int(np.trace(m))}, most confused {most_confused(m, ids, top=3)}; "
+        f"launches {counts}")
+    if [r["task"] for r in records] != list(range(REPLAY_TASKS)):
+        raise AssertionError(f"per-task records out of order: {[r['task'] for r in records]}")
+    if abs(mean - summary["accuracy"]) > 1e-6 or int(m.sum()) != n_queries:
+        raise AssertionError(f"per-task log disagrees: mean {mean} vs {summary}, "
+                             f"{int(m.sum())} of {n_queries} queries")
+    if counts != dict(tct_attention=2 * math.ceil(REPLAY_TASKS / 8), bn_sums=0,
+                      bn_bwd_sums=0):
+        raise AssertionError(f"per-task eval launches {counts}")
+    return counts
+
+
+def zoo_main_path(label, run_root):
+    """Phase 9 on phase 7's JPEG tree and phase 6's trees: ``expert_strm``
+    and ``expert_baseline --pallas_bn`` training, DeiT-small pretraining,
+    the teacher eval and a per-task log, each through its CLI, then the
+    device-resident expert steps. Returns the summed launch counts."""
+    frames, splits, fused = run_root / "frames", run_root / "tree" / "splits", run_root / "fused"
+    total = dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0)
+    for counts in (
+            expert_train_path(label, frames, splits, fused, run_root / "strm", STRM_ARGV),
+            expert_train_path(label, frames, splits, fused, run_root / "baseline",
+                              BASELINE_ARGV),
+            teacher_eval_path(label, run_root),
+            per_task_log_path(label, run_root)):
+        total = {k: total[k] + counts[k] for k in total}
+    deit_pretrain_path(label, frames, splits, run_root / "deit")
+    expert_device_rate(label, "expert_strm", [(True, 4, False)], profile=False)
+    expert_device_rate(label, "expert_baseline", [(True, 4, True)], profile=False)
+    return total
 
 
 def main():
@@ -1636,6 +1857,9 @@ def main():
         # 8. the expert and pretrain stages on phase 7's tree, closing the
         # chain from frames
         expert_counts = expert_main_path(smi.splitlines()[0], run_root)
+        # 9. the STRM and Baseline experts, DeiT pretraining and the eval
+        # extras on the trees of phases 6 and 7
+        zoo_counts = zoo_main_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -1658,18 +1882,18 @@ def main():
              replaces="litemkd_tpu/ops/pallas_tct.py:61",
              launches=(counts["tct_attention"] + mfm_counts["tct_attention"]
                        + video_counts["tct_attention"]
-                       + expert_counts["tct_attention"]),
+                       + expert_counts["tct_attention"] + zoo_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=(counts["bn_sums"] + video_counts["bn_sums"]
-                       + expert_counts["bn_sums"]),
+                       + expert_counts["bn_sums"] + zoo_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:103",
              launches=(counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"]
-                       + expert_counts["bn_bwd_sums"]),
+                       + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -4,7 +4,7 @@ MFM-teacher and extraction paths read, copied from
 ``train_teacher``/``extract``/``pretrain`` CLIs (same names, same mapping
 onto the typed Config), plus ``--device``, the sampler, fixed-episode
 files and the device choice. Flags of paths the port does not have yet
-(meshes, teacher eval, per-task logs) come with those paths.
+(meshes) come with those paths.
 """
 from __future__ import annotations
 
@@ -129,11 +129,12 @@ def add_pretrain_args(p: argparse.ArgumentParser) -> None:
                    help="classifier-head SGD learning rate (pretrain.py:32,85)")
     p.add_argument("--arch", default="resnet50",
                    help="resnet18|resnet34|resnet50 (Action_Recognition_"
-                        "Resnet50); deit_small is not ported yet")
+                        "Resnet50) or deit_small (model_distillation's ViT)")
     p.add_argument("--init_checkpoint", default=None,
                    help="warm-start the trunk from a torchvision resnet zoo "
                         "file, a pretrain (convnet.*) or expert (resnet.*) "
-                        ".pt, or a trunk.* file")
+                        ".pt, or a trunk.* file; for deit_small a timm DeiT "
+                        "file or a deit pretrain checkpoint")
 
 
 def add_fusion_args(p: argparse.ArgumentParser) -> None:
@@ -163,8 +164,17 @@ def apply_fusion_args(cfg: Config, args: argparse.Namespace) -> Config:
 
 
 def add_test_args(p: argparse.ArgumentParser) -> None:
+    """The eval CLI's flags (``litemkd_tpu/cli/common.py:164-170``)."""
     p.add_argument("--test_model_path", "-m", default=None,
-                   help="reference-layout student .pt (strict load)")
+                   help="reference-layout student .pt (strict load), or a "
+                        "teacher .pt with --test_model teacher")
+    p.add_argument("--test_model", choices=["teacher", "student"],
+                   default="student")
+    p.add_argument("--per_task_log", default=None, metavar="PATH",
+                   help="write one JSON line per task (accuracy, episode "
+                        "classes, real-class labels/predictions): the "
+                        "reference's per-task analysis stream (test.py:232, "
+                        "utils.py task_confusion)")
 
 
 def dataset_paths(dataset: str, root: str = "data") -> dict:

@@ -1,7 +1,9 @@
 """Student and teacher episode models and the selection registries
 (port of ``litemkd_tpu/models/student.py:43-68, 88-141, 144-186, 224-328``),
-limited to the entries of the ported slices: every ``ResNetBackbone``
-entry of the JAX registry, and the TRX heads.
+limited to the entries of the ported slices: every ``ResNetBackbone`` and
+``STRMBackbone`` entry of the JAX registry, and the TRX, e_dist/cos and
+STRM heads. An entry of the JAX registry that the port lacks raises
+``NotImplementedError`` naming its ROADMAP queue.
 
 A whole batch of episodes goes through one model call: the trunk sees one
 fused (episodes × videos × frames) image batch, context and target clips
@@ -21,7 +23,12 @@ from torch import nn
 
 from ..config import Config
 from ..ops.dtypes import anchor_dtype
+from .backbones.classifier_net import DeiTTrunk
 from .backbones.resnet import ResNetBackbone
+from .backbones.strm import STRMBackbone
+from .classifiers.edist import (CosDistance, EDist, EDist1FCSup, EDistFC2,
+                                EDistFC2Sup)
+from .classifiers.strm import STRM1FCSup, STRMClassifier, STRMClassifierSup
 from .classifiers.trx import TRX, TRX_2fcsup, TRX_2fcsup_fixed
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
@@ -41,6 +48,11 @@ BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "resnet50_2fc": partial(ResNetBackbone, depth=50, num_fc=2),
     "meta_baseline": partial(ResNetBackbone, depth=50, num_fc=1, fc_name="fc"),
     "meta_baseline_fc2": partial(ResNetBackbone, depth=50, num_fc=2),
+    "strm18_student": partial(STRMBackbone, depth=18, num_fc=2),
+    "strm18_1fc": partial(STRMBackbone, depth=18, num_fc=1),
+    "strmbackbone": partial(STRMBackbone, depth=18, num_fc=1),
+    "strm50_student": partial(STRMBackbone, depth=50, num_fc=1),
+    "cnn_strm": partial(STRMBackbone, depth=50, num_fc=1),
 }
 
 CLASSIFIERS: Dict[str, Any] = {
@@ -48,7 +60,38 @@ CLASSIFIERS: Dict[str, Any] = {
     "TRX_fixed": TRX,
     "TRX_2fcsup": TRX_2fcsup,
     "TRX_2fcsup_fixed": TRX_2fcsup_fixed,
+    "cos": CosDistance,
+    "e_dist": EDist,
+    "e_dist_fc2": EDistFC2,
+    "e_dist_fc2_sup": EDistFC2Sup,
+    "e_dist_fc2_sup_fixed": EDist1FCSup,
+    "e_dist_1fc_sup": EDist1FCSup,
+    "strmclassifiers": STRMClassifier,
+    "strm_res18": STRMClassifier,
+    "strm_res18_sup": STRMClassifierSup,
+    "strm_1fc_sup": STRM1FCSup,
 }
+
+# entries of the JAX registries that the port does not have yet, by the
+# ROADMAP queue that holds them
+UNPORTED: Dict[str, str] = {
+    **{n: "queue 5 (expert_skeleton_trx)" for n in (
+        "s3d", "skeleton", "s3d_videoaxis", "skeleton_videoaxis")},
+    **{n: "queue 6" for n in (
+        "mobilenetv3_large", "mobilenetv3_large_2fc", "mobilenetv3_small",
+        "mobilenetv3_small_2fc", "feature", "TRX_sup", "TRX_sup_fixed",
+        "TRX_2fc", "TRX_1fc_sup", "TRX_2fcsup_2", "TRX_2fcsup_2_fixed",
+        "OTAM", "CNN_OTAM", "TRX_multi", "TRM", "CTX", "CTX_videoaxis")},
+}
+
+
+def _entry(registry: Dict[str, Any], name: str):
+    """``registry[name]``; an entry the port lacks raises
+    ``NotImplementedError`` naming its queue."""
+    if name not in registry and name in UNPORTED:
+        raise NotImplementedError(f"{name!r} is not ported yet (ROADMAP "
+                                  f"{UNPORTED[name]})")
+    return registry[name]
 
 
 # teacher selection aliases (reference model_select.py:220-233)
@@ -67,9 +110,10 @@ TEACHER_ALIASES: Dict[str, str] = {
 
 def resolve_teacher(name: str) -> str:
     """Map a reference teacher-selection name (or a classifier name) to its
-    ``CLASSIFIERS`` key; raises for a head the port does not have."""
+    classifier key; an unknown name raises ``ValueError`` (a head of the
+    JAX registry that the port lacks raises in :func:`make_classifier`)."""
     resolved = TEACHER_ALIASES.get(name, name)
-    if resolved not in CLASSIFIERS:
+    if resolved not in CLASSIFIERS and resolved not in UNPORTED:
         raise ValueError(
             f"unknown teacher head {name!r}; expected one of "
             f"{sorted(TEACHER_ALIASES)} or a classifier name "
@@ -83,28 +127,43 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def make_classifier(name: str, cfg: Config) -> nn.Module:
-    # heads are precision-sensitive (attention, softmax, distances), so they
-    # run at the fp32 anchor whatever the trunk dtype
-    return CLASSIFIERS[name](
-        way=cfg.episode.way, shot=cfg.episode.shot, seq_len=cfg.episode.seq_len,
-        in_dim=cfg.model.trans_linear_in_dim,
-        out_dim=cfg.model.trans_linear_out_dim,
-        set_size=cfg.model.temp_set[0], dropout=cfg.model.trans_dropout,
-        compute_dtype=anchor_dtype(compute_dtype(cfg)))
+    """The head ``name`` with the JAX package's keyword arguments
+    (``litemkd_tpu/models/student.py:144-172``): the episode geometry, and
+    for the TRX and STRM heads the widths, tuple size and dropout. Those
+    heads run at the fp32 anchor whatever the trunk dtype: attention,
+    softmax and distances are precision-sensitive."""
+    cls = _entry(CLASSIFIERS, name)
+    kw = dict(way=cfg.episode.way, shot=cfg.episode.shot,
+              seq_len=cfg.episode.seq_len)
+    if issubclass(cls, (TRX, STRMClassifier)):
+        kw.update(in_dim=cfg.model.trans_linear_in_dim,
+                  out_dim=cfg.model.trans_linear_out_dim,
+                  set_size=cfg.model.temp_set[0],
+                  dropout=cfg.model.trans_dropout,
+                  compute_dtype=anchor_dtype(compute_dtype(cfg)))
+    return cls(**kw)
 
 
 def make_backbone(name: str, cfg: Config) -> nn.Module:
-    return BACKBONES[name](out_dim=cfg.model.trans_linear_in_dim,
-                           compute_dtype=compute_dtype(cfg),
-                           pallas_bn=cfg.model.pallas_bn,
-                           freeze_bn=cfg.model.freeze_bn,
-                           remat=cfg.model.remat)
+    """The backbone ``name``. A resnet one gets the BN-kernel switch
+    ``pallas_bn``; an STRM one gets none, as in the JAX package, and its
+    enrichment blocks' dropout is ``trans_dropout``."""
+    kw = dict(out_dim=cfg.model.trans_linear_in_dim,
+              compute_dtype=compute_dtype(cfg), freeze_bn=cfg.model.freeze_bn,
+              remat=cfg.model.remat)
+    entry = _entry(BACKBONES, name)
+    if entry.func is STRMBackbone:
+        kw.update(seq_len=cfg.episode.seq_len, dropout=cfg.model.trans_dropout)
+    else:
+        kw.update(pallas_bn=cfg.model.pallas_bn)
+    return entry(**kw)
 
 
 def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every weight with torch's default initialisers from
     ``generator``: conv and linear weights and linear biases
-    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity."""
+    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity; a DeiT
+    trunk's token parameters N(0, 0.02²)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -114,6 +173,8 @@ def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, DeiTTrunk):
+                m.reset_tokens_(generator)
     return model
 
 

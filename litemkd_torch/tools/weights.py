@@ -13,20 +13,26 @@ port's ``BatchedStudent`` layout:
   backbone (``backbone.res18_2048``, ``backbone.fc``), or none;
 - ``classifier.transformers.{k_linear, v_linear, norm_k, norm_v, pe.pe}``.
 
-An ``ActionRecognitionNet`` goes to ``convnet.<seq>.…`` and ``fc``.
+An STRM student has the reference's CNN_STRM names under ``backbone.``
+(``attn_pat``, ``lift``, ``fr_enrich``, ``fc1``/``fc2``) and
+``classifier.distance.clsW``. An ``ActionRecognitionNet`` goes to
+``convnet.<seq>.…`` and ``fc``, a ``ViTClassifier`` to timm's names under
+``convnet.`` and ``fc``.
 
 Conversions: Dense kernel (in, out) → Linear weight (out, in); conv HWIO →
 OIHW; BN scale/bias and mean/var → weight/bias and running stats
 (``num_batches_tracked`` 0); the unused ``norm_v`` gets identity values and
 ``pe.pe`` the (1, int(1.5·seq_len), D) sinusoidal table; an MFM
 encoder layer's q, k and v projections stack into the (3d, d)
-``in_proj_weight`` of torch's ``nn.MultiheadAttention``.
+``in_proj_weight`` of torch's ``nn.MultiheadAttention``, and a ViT
+block's into timm's fused ``attn.qkv``.
 
 Importers: a torchvision resnet zoo file (``conv1.weight``,
 ``layer1.0.conv1.weight``, …), the reference's pretrain artifact
 (``convnet.N.*``), its run.py expert artifact (``resnet.N.*`` and
-``transformers.{i}.*``), a ``trunk.``-prefixed trunk and a full student
-(``backbone.*``, ``classifier.*``) become PARTIAL state dicts, which
+``transformers.{i}.*``; for an STRM backbone its CNN_STRM artifact), a
+``trunk.``-prefixed trunk, a full student (``backbone.*``,
+``classifier.*``) and a timm DeiT file become PARTIAL state dicts, which
 :func:`merge_state_dict` lays over a fresh model's. A file whose trunk has
 another depth than the model's raises, as does a key the model lacks.
 """
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models.backbones.strm import STRMBackbone
 from ..models.student import BACKBONES
 from ..ops.positional import sinusoidal_pe
 
@@ -115,16 +122,52 @@ def backbone_state_dict_from_jax(params: dict, stats: dict, depth: int = 18,
     return _tensors(sd)
 
 
-def classifier_net_state_dict_from_jax(variables: dict, depth: int
+def classifier_net_state_dict_from_jax(variables: dict,
+                                       depth: Optional[int] = None
                                        ) -> Dict[str, torch.Tensor]:
-    """JAX ``ActionRecognitionNet`` variables → the reference's
-    ``Action_Recognition_Resnet50`` keys (``convnet.<seq>.…``, ``fc``)."""
-    _check_depth(depth)
-    params, stats = variables["params"], variables["batch_stats"]
+    """JAX pretraining-classifier variables → the port's keys: an
+    ``ActionRecognitionNet`` of ``depth`` to the reference's
+    ``Action_Recognition_Resnet50`` keys (``convnet.<seq>.…``, ``fc``), a
+    ``ViTClassifier`` (no ``depth``) to timm's names under ``convnet.``
+    and ``fc``."""
+    params = variables["params"]
     sd: Dict[str, np.ndarray] = {}
-    _trunk(sd, params["trunk"], stats["trunk"], depth, "convnet.")
+    if "cls_token" in params:
+        _vit(sd, params, "convnet.")
+    else:
+        _check_depth(depth)
+        _trunk(sd, params["trunk"], variables["batch_stats"]["trunk"], depth,
+               "convnet.")
     _lin(sd, "fc", params["fc"])
     return _tensors(sd)
+
+
+def _vit(sd, params, prefix):
+    """JAX ``ViTClassifier`` trunk params → timm's names: flax MHA's
+    per-projection (dim, heads, head_dim) kernels stack into the fused
+    ``attn.qkv`` rows q; k; v."""
+    for name in ("cls_token", "dist_token", "pos_embed"):
+        sd[prefix + name] = _np(params[name])
+    _conv(sd, f"{prefix}patch_embed.proj.weight", params["patch_embed"])
+    sd[f"{prefix}patch_embed.proj.bias"] = _np(params["patch_embed"]["bias"])
+    _ln(sd, f"{prefix}norm", params["norm"])
+    i = 0
+    while f"attn_{i}" in params:
+        b, attn = f"{prefix}blocks.{i}", params[f"attn_{i}"]
+        dim = _np(attn["query"]["kernel"]).shape[0]
+        sd[f"{b}.attn.qkv.weight"] = np.concatenate(
+            [_np(attn[n]["kernel"]).reshape(dim, dim).T
+             for n in ("query", "key", "value")])
+        sd[f"{b}.attn.qkv.bias"] = np.concatenate(
+            [_np(attn[n]["bias"]).reshape(dim) for n in ("query", "key", "value")])
+        sd[f"{b}.attn.proj.weight"] = \
+            _np(attn["out"]["kernel"]).reshape(dim, dim).T.copy()
+        sd[f"{b}.attn.proj.bias"] = _np(attn["out"]["bias"])
+        _ln(sd, f"{b}.norm1", params[f"norm1_{i}"])
+        _ln(sd, f"{b}.norm2", params[f"norm2_{i}"])
+        _lin(sd, f"{b}.mlp.fc1", params[f"mlp_in_{i}"])
+        _lin(sd, f"{b}.mlp.fc2", params[f"mlp_out_{i}"])
+        i += 1
 
 
 def tct_state_dict_from_jax(tct: dict, d_model: int, max_len: int
@@ -149,26 +192,62 @@ def backbone_geometry(name: str) -> Tuple[int, Tuple[str, ...]]:
         raise ValueError(f"backbone {name!r} is not ported: the port has "
                          f"{sorted(BACKBONES)}")
     kw = BACKBONES[name].keywords
-    names = ((), (kw.get("fc_name", "fc1"),), ("fc1", "fc2"))[kw["num_fc"]]
+    n_fc = kw["num_fc"]
+    if BACKBONES[name].func is STRMBackbone and n_fc == 1:
+        n_fc = 0        # its one stream is the enriched frames, no head
+    names = ((), (kw.get("fc_name", "fc1"),), ("fc1", "fc2"))[n_fc]
     return kw["depth"], names
+
+
+def _strm_backbone(sd, params, seq_len):
+    """The STRM blocks of a JAX ``STRMBackbone`` → CNN_STRM names, with the
+    blocks' sinusoidal tables."""
+    a = params["attn_pat"]
+    width = _np(a["query_proj"]["kernel"]).shape[0]
+    for src, dst in (("query_proj", "query_proj"), ("key_proj", "key_proj"),
+                     ("value_proj", "value_conv")):
+        _lin(sd, f"attn_pat.{dst}", a[src])
+    sd["attn_pat.gamma"] = _np(a["gamma"])
+    for n in ("inp_fc", "hid_fc", "out_fc"):
+        _lin(sd, f"attn_pat.Bot_MLP.{n}", a["bot_mlp"][n])
+    sd["attn_pat.pe.pe"] = sinusoidal_pe(24, width, 0.1)[None]
+    _lin(sd, "lift", params["lift"])
+    f = params["fr_enrich"]
+    for src, dst in (("tok_mlp", "Tok_MLP"), ("bot_mlp", "Bot_MLP")):
+        for n in ("inp_fc", "out_fc"):
+            _lin(sd, f"fr_enrich.{dst}.{n}", f[src][n])
+    out_dim = _np(params["lift"]["bias"]).shape[0]
+    sd["fr_enrich.pe.pe"] = sinusoidal_pe(int(seq_len * 1.5), out_dim, 0.1)[None]
 
 
 def student_state_dict_from_jax(variables: dict, cfg: Config
                                 ) -> Dict[str, torch.Tensor]:
     """JAX ``BatchedStudent``/``Student`` variables (numpy leaves) of a
-    resnet backbone with a single-TCT TRX head → reference-layout torch
-    state dict."""
+    resnet or STRM backbone with a single-TCT TRX or STRM head, or a
+    parameter-free e_dist/cos head → reference-layout torch state dict."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     depth, fc_names = backbone_geometry(cfg.model.backbone)
-    tct = params["classifier"]["transformers"]
-    if "k_linear" not in tct:
-        raise ValueError("multi-set TCT heads are not ported")
+    bb = params["backbone"]
     sd = {f"backbone.{k}": v for k, v in backbone_state_dict_from_jax(
-        params["backbone"], stats["backbone"], depth, fc_names).items()}
-    sd.update({f"classifier.transformers.{k}": v for k, v in
-               tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
-                                       int(1.5 * cfg.episode.seq_len)).items()})
+        bb, stats["backbone"], depth, fc_names).items()}
+    if "attn_pat" in bb:
+        strm: Dict[str, np.ndarray] = {}
+        _strm_backbone(strm, bb, cfg.episode.seq_len)
+        sd.update({f"backbone.{k}": v for k, v in _tensors(strm).items()})
+    head = params.get("classifier", {})
+    if "transformers" in head:
+        tct = head["transformers"]
+        if "k_linear" not in tct:
+            raise ValueError("multi-set TCT heads are not ported")
+        sd.update({f"classifier.transformers.{k}": v for k, v in
+                   tct_state_dict_from_jax(
+                       tct, cfg.model.trans_linear_in_dim,
+                       int(1.5 * cfg.episode.seq_len)).items()})
+    if "distance" in head:
+        dist: Dict[str, np.ndarray] = {}
+        _lin(dist, "classifier.distance.clsW", head["distance"]["clsW"])
+        sd.update(_tensors(dist))
     return sd
 
 
@@ -373,25 +452,49 @@ def _trunk_import(sd: Dict[str, torch.Tensor], prefix: str, depth: int,
     return trunk
 
 
+_DEIT_BLOCK_KEYS = tuple(f"{m}.{w}" for m in (
+    "norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+    for w in ("weight", "bias"))
+
+
+def _deit_trunk(sd: Dict[str, torch.Tensor], prefix: str
+                ) -> Dict[str, torch.Tensor]:
+    """The keys of a timm DeiT trunk under ``prefix`` that the JAX
+    package's ``import_deit_trunk`` reads (``torch_import.py:360-404``),
+    under ``convnet.``: the tokens, the patch embedding, every block and the
+    final norm; timm's ``head``/``head_dist`` are left out."""
+    depth = 1 + max(int(k[len(prefix):].split(".")[1]) for k in sd
+                    if k.startswith(f"{prefix}blocks."))
+    keys = ["cls_token", "dist_token", "pos_embed", "patch_embed.proj.weight",
+            "patch_embed.proj.bias", "norm.weight", "norm.bias"]
+    keys += [f"blocks.{i}.{k}" for i in range(depth) for k in _DEIT_BLOCK_KEYS]
+    return {f"convnet.{k}": sd[prefix + k] for k in keys}
+
+
 def load_pretrain_init(path: str, arch: str) -> Dict[str, torch.Tensor]:
-    """Warm-start weights for an ``ActionRecognitionNet`` of ``arch``
-    (``litemkd_tpu/tools/torch_import.py:407-452``): the trunk of a
-    torchvision zoo file, of a ``trunk.``-prefixed file, of the reference's
-    pretrain artifact (``convnet.``, also the port's own pretrain
-    checkpoint) or of its run.py expert artifact (``resnet.``), as a
-    PARTIAL state dict under ``convnet.`` (no classifier head)."""
-    if arch == "deit_small":
-        raise NotImplementedError(
-            "deit_small (ViTClassifier, import_deit_trunk) is not ported yet "
-            "(ROADMAP queue 5); the port pretrains resnet18/34/50")
-    depth = int(arch.replace("resnet", ""))
+    """Warm-start weights for the pretraining classifier of ``arch``
+    (``litemkd_tpu/tools/torch_import.py:407-452``), as a PARTIAL state
+    dict under ``convnet.`` (no classifier head). A resnet takes the trunk
+    of a torchvision zoo file, of a ``trunk.``-prefixed file, of the
+    reference's pretrain artifact (``convnet.``, also the port's own
+    pretrain checkpoint) or of its run.py expert artifact (``resnet.``);
+    deit_small the trunk of a timm ``deit_small_distilled_patch16_224``
+    file or of a saved ``model_distillation`` (timm's names under
+    ``convnet.``, the port's deit checkpoint)."""
     sd = load_reference_state_dict(path)
+    if arch == "deit_small":
+        if "cls_token" in sd:
+            return _deit_trunk(sd, "")
+        if "convnet.cls_token" in sd:
+            return _deit_trunk(sd, "convnet.")
+        raise ValueError(f"{path} is not a timm DeiT checkpoint")
+    depth = int(arch.replace("resnet", ""))
     if _is_torchvision_resnet(sd):
         prefix = ""
     elif "features.0.0.weight" in sd:
         raise ValueError(f"{path} is a mobilenet zoo checkpoint; the "
-                         f"pretraining stage warm-starts resnet trunks only "
-                         f"(--arch {arch})")
+                         f"pretraining stage warm-starts resnet/deit trunks "
+                         f"only (--arch {arch})")
     else:
         prefix = next((p for p in ("trunk.", "convnet.", "resnet.")
                        if any(k.startswith(p) for k in sd)), None)
@@ -425,31 +528,68 @@ def _expert_import(sd, depth, path, backbone):
     return out
 
 
+def _cnn_strm_import(sd, depth, path, backbone, out_dim):
+    """A CNN_STRM expert artifact (``litemkd_tpu/tools/torch_import.py:
+    854-899``): its trunk (``resnet.``), ``attn_pat`` (``value_conv``, the
+    released name), ``fr_enrich`` and one TCT (``transformers.0``), with
+    ``lift`` set to the identity (the reference's trunk width already is
+    ``out_dim``). The released file has no ``distance.clsW`` (the
+    reference keeps those heads in a plain Python list), so it keeps the
+    model's init."""
+    if "transformers.0.k_linear.weight" not in sd:
+        raise ValueError(f"{path} holds no transformers.* TCT keys: not a "
+                         "CNN_STRM expert artifact")
+    if "transformers.1.k_linear.weight" in sd:
+        raise NotImplementedError(
+            f"{path} holds several TCT sets; multi-set heads are not ported "
+            "yet (ROADMAP queue 6)")
+    out = {f"backbone.resnet.{k}": v for k, v in _trunk_import(
+        sd, "resnet.", depth, path, f"backbone {backbone!r}").items()}
+    keys = [f"attn_pat.{m}.{w}" for m in (
+        "query_proj", "key_proj", "value_conv", "Bot_MLP.inp_fc",
+        "Bot_MLP.hid_fc", "Bot_MLP.out_fc") for w in ("weight", "bias")]
+    keys += ["attn_pat.gamma"]
+    keys += [f"fr_enrich.{m}.{w}" for m in (
+        "Tok_MLP.inp_fc", "Tok_MLP.out_fc", "Bot_MLP.inp_fc", "Bot_MLP.out_fc")
+        for w in ("weight", "bias")]
+    out.update({f"backbone.{k}": sd[k] for k in keys})
+    out["backbone.lift.weight"] = torch.eye(out_dim)
+    out["backbone.lift.bias"] = torch.zeros(out_dim)
+    out.update(_tct_import(sd, "transformers.0"))
+    return out
+
+
 def load_student_checkpoint(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
     """A ``.pt`` file as a (maybe PARTIAL) ``BatchedStudent`` state dict, by
     the routes of ``litemkd_tpu/tools/torch_import.py:565-630`` that this
     port has: a torchvision resnet zoo file (the trunk only, the reference's
     ``pretrained=True``), a run.py expert artifact (``resnet.N.*`` and
-    ``transformers.0``), or a full
-    reference student (``backbone.*``, ``classifier.*``, with DataParallel
-    ``module.`` segments dropped). A trunk of another depth than the
-    configured backbone's raises; CTX, S3D and mobilenet artifacts are not
-    ported yet."""
+    ``transformers.0``; for an STRM backbone the CNN_STRM artifact), or a
+    full reference student (``backbone.*``, ``classifier.*``, with
+    DataParallel ``module.`` segments dropped). A trunk of another depth
+    than the configured backbone's raises; CTX, S3D and mobilenet artifacts
+    are not ported yet."""
     sd = load_reference_state_dict(path)
     backbone = cfg.model.backbone
     depth, _ = backbone_geometry(backbone)
     if _is_torchvision_resnet(sd):
         return {f"backbone.resnet.{k}": v for k, v in _trunk_import(
             sd, "", depth, path, f"backbone {backbone!r}").items()}
-    for key, kind in (("time_trans.positionEncoding.position_embeddings.weight",
-                       "CTX"), ("encoder.t_embedding.0.weight", "S3D skeleton"),
-                      ("features.0.0.weight", "mobilenet")):
+    for key, kind, queue in (
+            ("time_trans.positionEncoding.position_embeddings.weight", "CTX",
+             "queue 6"),
+            ("encoder.t_embedding.0.weight", "S3D skeleton",
+             "queue 5 (expert_skeleton_trx)"),
+            ("features.0.0.weight", "mobilenet", "queue 6")):
         if key in sd:
             raise NotImplementedError(f"{path} is a {kind} artifact; its "
-                                      "importer is not ported yet (ROADMAP "
-                                      "queue 6)")
+                                      f"importer is not ported yet (ROADMAP "
+                                      f"{queue})")
     if not any(k.startswith("backbone.") for k in sd):
         if any(k.startswith("resnet.") for k in sd):
+            if BACKBONES[backbone].func is STRMBackbone:
+                return _cnn_strm_import(sd, depth, path, backbone,
+                                        cfg.model.trans_linear_in_dim)
             return _expert_import(sd, depth, path, backbone)
         raise ValueError(f"{path} is not a student, expert or torchvision "
                          "resnet checkpoint")

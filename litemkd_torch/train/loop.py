@@ -25,7 +25,7 @@ import torch
 from ..config import Config
 from ..data.prefetch import DeferredHostSync, Prefetcher
 from ..utils.logging import MetricsLogger
-from ..utils.metrics import TestAccuracies
+from ..utils.metrics import TestAccuracies, real_class_preds
 from .checkpoint import CheckpointManager
 from .steps import (EpisodeBatch, TrainState, create_train_state,
                     make_eval_step, make_train_step)
@@ -57,34 +57,63 @@ def to_device(batch: EpisodeBatch, device: torch.device) -> EpisodeBatch:
 def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
              n_tasks: Optional[int] = None, batch_size: int = 8, seed: int = 0,
              eval_step: Optional[Callable] = None,
-             device: Optional[torch.device] = None, specs=None) -> dict:
+             device: Optional[torch.device] = None, specs=None,
+             task_log: Optional[Callable[[dict], None]] = None) -> dict:
     """Episodic evaluation: mean accuracy ×100 with the 196·std/√n CI.
 
-    ``model`` is an eval-mode ``BatchedStudent``, or an ``MFMTeacher`` with
-    the MFM eval step; ``device`` defaults to the device of its parameters.
+    ``model`` is an eval-mode ``BatchedStudent``, a ``BatchedTeacher`` with
+    the teacher eval step, or an ``MFMTeacher`` with the MFM eval step;
+    ``device`` defaults to the device of its parameters.
     ``eval_step(model, batch) → (E,)`` accuracies defaults to
     :func:`make_eval_step`. With ``specs`` (fixed episodes, at least
-    ``n_tasks`` of them) chunk i replays its slice of them."""
+    ``n_tasks`` of them) chunk i replays its slice of them.
+
+    ``task_log`` is called once per episode, in task order, with the record
+    ``{task, accuracy, classes, real_labels, real_preds}``: the reference's
+    per-task analysis stream (``test.py:232``, ``utils.py:123-127``). It
+    needs a sampler that returns episode metadata and an ``eval_step``
+    built with ``with_preds`` (the default step is)."""
     n_tasks = n_tasks or cfg.train.num_test_tasks
-    eval_step = eval_step or make_eval_step(cfg)
+    eval_step = eval_step or make_eval_step(cfg, with_preds=task_log is not None)
     device = device or next(model.parameters()).device
     rng = np.random.default_rng(seed)
     sizes = [batch_size] * (n_tasks // batch_size)
     if n_tasks % batch_size:
         sizes.append(n_tasks % batch_size)
     offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    metas: Dict[int, object] = {}
 
     def produce(i: int) -> EpisodeBatch:
-        if specs is None:
-            return sampler.sample_batch(rng, sizes[i], train=False)
-        return sampler.sample_batch(rng, sizes[i], train=False,
-                                    specs=specs[offsets[i]:offsets[i] + sizes[i]])
+        kw = {} if specs is None else {
+            "specs": specs[offsets[i]:offsets[i] + sizes[i]]}
+        if task_log is None:
+            return sampler.sample_batch(rng, sizes[i], train=False, **kw)
+        batch, metas[i] = sampler.sample_batch(rng, sizes[i], train=False,
+                                               return_meta=True, **kw)
+        return batch
 
     acc = TestAccuracies()
-    deferred = DeferredHostSync(lambda accs: acc.extend(accs.cpu().numpy()))
-    for batch in Prefetcher(produce, len(sizes),
-                            transfer=lambda b: to_device(b, device)):
-        deferred.push(eval_step(model, batch))
+
+    def absorb(i: int, out) -> None:
+        accs, preds = out if task_log is not None else (out, None)
+        accs = accs.cpu().numpy()
+        acc.extend(accs)
+        if task_log is None:
+            return
+        meta = metas.pop(i)
+        real_preds = real_class_preds(preds.cpu(),
+                                      torch.from_numpy(meta.classes)).numpy()
+        for e in range(accs.shape[0]):
+            task_log({"task": offsets[i] + e,
+                      "accuracy": float(accs[e]),
+                      "classes": meta.classes[e].tolist(),
+                      "real_labels": meta.real_query_labels[e].tolist(),
+                      "real_preds": real_preds[e].tolist()})
+
+    deferred = DeferredHostSync(absorb)
+    for i, batch in enumerate(Prefetcher(produce, len(sizes),
+                                         transfer=lambda b: to_device(b, device))):
+        deferred.push(i, eval_step(model, batch))
     deferred.flush()
     return acc.summary()
 

@@ -1,5 +1,6 @@
 """Episode batches, the train state, the distillation train step and the
-eval step (port of ``litemkd_tpu/train/steps.py:31-230``).
+student's and teacher's eval steps (port of
+``litemkd_tpu/train/steps.py:31-250``).
 
 The train step sums the named loss over the episodes of a batch, as the
 reference sums 16 per-episode losses before it steps. With ``micro_batch``
@@ -205,15 +206,39 @@ def make_train_step(cfg: Config) -> Callable:
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable:
+def make_eval_step(cfg: Config, with_preds: bool = False) -> Callable:
     """Eval step: ``eval_step(model, batch) → (E,)`` per-episode accuracies
-    of the merged branch logits, computed on the batch's device."""
+    of the merged branch logits, computed on the batch's device; with
+    ``with_preds`` → ``((E,) accuracies, (E, Q) episode-local argmax
+    predictions)`` for the per-task confusion analysis (the reference's
+    ``test.py:160-201``)."""
 
-    def eval_step(model: torch.nn.Module, batch: EpisodeBatch) -> torch.Tensor:
+    def eval_step(model: torch.nn.Module, batch: EpisodeBatch):
         with torch.inference_mode():
             out = model(batch.support_clips, batch.support_labels,
                         batch.query_clips)
             merged = merge_logits(cfg.distill.name, out["logits"])
-            return per_episode_accuracy(merged, batch.query_labels)
+            acc = per_episode_accuracy(merged, batch.query_labels)
+            return (acc, merged.argmax(dim=-1)) if with_preds else acc
+
+    return eval_step
+
+
+def make_teacher_eval_step(cfg: Config, with_preds: bool = False) -> Callable:
+    """Eval step of the frozen teacher itself on feature episodes (the
+    reference's ``test.py`` teacher mode, l.107-110):
+    ``eval_step(teacher, batch)`` scores the teacher's ``kl`` logits (the
+    first branch of a head without one) against the query labels; returns
+    what :func:`make_eval_step`'s step does."""
+
+    def eval_step(teacher: torch.nn.Module, batch: EpisodeBatch):
+        with torch.inference_mode():
+            logits = teacher(batch.support_feats, batch.support_labels,
+                             batch.query_feats)["logits"]
+            if isinstance(logits, dict):
+                logits = logits["kl"] if "kl" in logits else \
+                    next(iter(logits.values()))
+            acc = per_episode_accuracy(logits, batch.query_labels)
+            return (acc, logits.argmax(dim=-1)) if with_preds else acc
 
     return eval_step

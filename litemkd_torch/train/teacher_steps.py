@@ -11,7 +11,8 @@ The whole batch (16 episodes at the preset) runs as one forward and one
 backward, so the TCT kernel launches once a step.
 
 Pretraining is plain mean cross-entropy over class labels for a per-modality
-:class:`ActionRecognitionNet`, with the reference's two SGD groups. Expert
+:class:`ActionRecognitionNet` or :class:`ViTClassifier`, with the
+reference's two SGD groups. Expert
 episodic training needs no step of its own: it is the student's step with a
 resnet backbone, a TRX head and ``TRXLoss``.
 """
@@ -23,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
-from ..models.backbones.classifier_net import ActionRecognitionNet
+from ..models.backbones.classifier_net import (ActionRecognitionNet,
+                                              ViTClassifier)
 from ..models.student import compute_dtype, init_student_
 from ..models.teacher import MFMTeacher, init_mfm_
 from ..ops.dtypes import anchor_dtype
@@ -123,14 +125,14 @@ def make_mfm_eval_step(cfg: Config) -> Callable:
 
 
 def make_pretrain_model(cfg: Config, num_classes: int,
-                        arch: str = "resnet50") -> ActionRecognitionNet:
-    """The pretraining classifier of ``arch``: resnet18/34/50
-    (``Action_Recognition_Resnet50``) in ``cfg.model.compute_dtype``, with
-    ``cfg.model.remat``."""
+                        arch: str = "resnet50") -> torch.nn.Module:
+    """The pretraining classifier of ``arch`` in ``cfg.model.compute_dtype``:
+    resnet18/34/50 (``Action_Recognition_Resnet50``, with
+    ``cfg.model.remat``) or deit_small (the ``model_distillation`` ViT at
+    ``cfg.episode.img_size``)."""
     if arch == "deit_small":
-        raise NotImplementedError(
-            "deit_small (ViTClassifier) is not ported yet (ROADMAP queue 5); "
-            "the port pretrains resnet18/34/50")
+        return ViTClassifier(num_classes, img_size=cfg.episode.img_size,
+                             compute_dtype=compute_dtype(cfg))
     if arch not in ("resnet18", "resnet34", "resnet50"):
         raise ValueError(f"unknown pretrain arch {arch!r}; choose "
                          "resnet18 | resnet34 | resnet50 | deit_small")
@@ -150,7 +152,8 @@ def create_pretrain_state(cfg: Config, device, num_classes: int,
     over them, the reference's ``pretrained=True`` warm start.
 
     ``lr_groups=(lr_1, lr_2)``: the reference's two SGD groups, the trunk
-    (``convnet``) at ``lr_1`` and the head (``fc``) at ``lr_2``, both with
+    (``convnet``, for the ViT everything but the head) at ``lr_1`` and the
+    head (``fc``) at ``lr_2``, both with
     momentum 0.9 (``pretrain.py:31-32``), each on ``StepLR(step_size=10,
     gamma=0.1)`` stepped at EPOCH START (``pretrain.py:33-38, 108-109``):
     epoch e (``steps_per_epoch`` updates) runs at ``0.1 ** ((e+1) // 10)``

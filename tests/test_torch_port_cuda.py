@@ -387,3 +387,110 @@ def test_checkpoint_dir_from_card_restores_on_cpu(cuda_device, tmp_path, caplog)
                                   "--device", "cpu"])
     assert summary["n_tasks"] == 2
     assert caplog.text.count("reseeded it from seed") == 3   # 2 student, 1 MFM
+
+
+def _strm_tiny(cuda_device):
+    """The tiny fp32 ``expert_strm`` student (the depth-18 ``strmbackbone``,
+    ``strmclassifiers``, ``strm_expert``, dropout 0, the attention gate at
+    0.75) on the CPU and its copy on the card, and one synthetic 2-episode
+    batch."""
+    import copy
+    import dataclasses
+    from litemkd_torch.cli.common import build_sampler
+    from litemkd_torch.train import create_train_state
+    base, expert = preset("tiny"), preset("expert_strm")
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, compute_dtype="float32",
+                                  trans_dropout=0.0, backbone="strmbackbone",
+                                  classifier=expert.model.classifier),
+        distill=expert.distill)
+    batch = build_sampler(cfg, need_teacher=False).sample_batch(
+        np.random.default_rng(0), cfg.train.tasks_per_batch)
+    cpu = create_train_state(cfg, "cpu", with_teacher=False)
+    with torch.no_grad():
+        cpu.model.backbone.attn_pat.gamma.fill_(0.75)
+        for m in cpu.model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.fill_(3.0)
+    gpu = create_train_state(cfg, cuda_device, with_teacher=False,
+                             student_state_dict=copy.deepcopy(
+                                 cpu.model.state_dict()))
+    return cfg, batch, cpu, gpu
+
+
+@pytest.mark.cuda
+def test_expert_strm_on_card_matches_cpu(cuda_device):
+    """The tiny ``expert_strm`` student on the card: its forward launches
+    the TCT kernel once (the frame stream) and no BN kernel, and its 'pat'
+    and 'fr' logits equal the CPU's within 1e-4·max; one training step
+    launches the TCT kernel once, its metrics match the CPU's (1e-4
+    relative) and every gradient is within 1e-3·max|g| of the CPU's. The
+    forward runs in training mode, with batch statistics: in eval mode the
+    running statistics (0 and 1 at init) leave the BN biases of 3 as a
+    common offset that makes every clip's patch features nearly equal, and
+    the distances between them, ‖a‖² + ‖b‖² − 2ab, fp32 rounding noise."""
+    from litemkd_torch.ops import batch_norm as bn
+    from litemkd_torch.train import make_train_step, to_device
+    cfg, batch, cpu, gpu = _strm_tiny(cuda_device)
+    out = {}
+    for state, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        b = to_device(batch, dev)
+        before = (ta.tct_attention.launches, bn.bn_sums.launches)
+        with torch.no_grad():
+            logits = state.model.train()(b.support_clips, b.support_labels,
+                                         b.query_clips)["logits"]
+        out[str(dev)] = ({k: v.cpu() for k, v in logits.items()},
+                         (ta.tct_attention.launches - before[0],
+                          bn.bn_sums.launches - before[1]))
+    (lc, _), (lg, n) = out["cpu"], out[str(cuda_device)]
+    assert n == (1, 0) and lg.keys() == lc.keys() == {"pat", "fr"}
+    for k in lc:
+        assert (lg[k] - lc[k]).abs().max().item() <= 1e-4 * lc[k].abs().max().item(), k
+    step = make_train_step(cfg)
+    m_cpu = step(cpu, to_device(batch, torch.device("cpu")))
+    before = (ta.tct_attention.launches, bn.bn_sums.launches)
+    m_gpu = step(gpu, to_device(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert (ta.tct_attention.launches - before[0],
+            bn.bn_sums.launches - before[1]) == (1, 0)
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-6, k
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()
+             if p.grad is not None}
+    g_max = max(g.abs().max().item() for g in grads.values())
+    assert "backbone.attn_pat.gamma" in grads
+    for name, p in gpu.model.named_parameters():
+        if name not in grads:
+            assert p.grad is None, name
+            continue
+        assert (p.grad.cpu() - grads[name]).abs().max().item() <= 1e-3 * g_max, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_vit_forward_on_card_matches_cpu(cuda_device, dtype, tol):
+    """The deit_small ViT (12 blocks of width 384) at 224 px on the card,
+    in fp32 (TF32 off) and under bf16 autocast, against the fp32 CPU
+    forward of the same weights: logits within ``tol``·max|logit| (bf16
+    rounds each block's products to 8 bits of mantissa)."""
+    import dataclasses
+    from litemkd_torch.train import make_pretrain_model
+    from litemkd_torch.models import init_student_
+    base = preset("tiny")
+    cpu = make_pretrain_model(base.replace(
+        episode=dataclasses.replace(base.episode, img_size=224),
+        model=dataclasses.replace(base.model, compute_dtype="float32")),
+        7, "deit_small")
+    init_student_(cpu, torch.Generator().manual_seed(0))
+    gpu = make_pretrain_model(base.replace(
+        episode=dataclasses.replace(base.episode, img_size=224),
+        model=dataclasses.replace(base.model, compute_dtype=str(dtype)[6:])),
+        7, "deit_small")
+    gpu.load_state_dict(cpu.state_dict())
+    clips = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 3, 224, 224, 3), np.uint8))
+    with torch.inference_mode():
+        want = cpu.eval()(clips)
+        got = gpu.to(cuda_device).eval()(clips.to(cuda_device)).float().cpu()
+    assert got.shape == (2, 7)
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()

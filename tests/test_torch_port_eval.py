@@ -1,7 +1,9 @@
 """The ported eval slice as a whole against the JAX package: synthetic
 batches, per-episode accuracies and the CI of ``run_eval`` on the same
-weights and seed; the config copy; and the port's independence from JAX
-(a CLI run in a fresh interpreter, and a scan of every import)."""
+weights and seed; the config copy; the port's independence from JAX (a
+CLI run in a fresh interpreter, and a scan of every import); and the eval
+extras from a JPEG tree: the teacher-mode eval CLI, per-task logs and the
+confusion analysis over them."""
 import argparse
 import ast
 import dataclasses
@@ -22,6 +24,7 @@ from litemkd_tpu.models import BatchedStudent as JaxBatchedStudent
 from litemkd_tpu.train import make_eval_step as jax_make_eval_step
 from litemkd_tpu.train import run_eval as jax_run_eval
 import litemkd_torch.config as torch_config
+from litemkd_torch.cli import common as torch_common
 from litemkd_torch.cli import test as torch_cli
 from litemkd_torch.data import SyntheticEpisodeSource
 from litemkd_torch.models import BatchedStudent
@@ -138,6 +141,8 @@ def test_config_json_round_trips_between_packages():
      "--cross_view", "--view", "2", "--view_root", "{dir}/views"],
     ["-m", "{dir}/student.pt", "--rgb_path", "{dir}/frames", "--fixed_view",
      "Camera_1", "--num_workers", "0"],
+    ["--preset", "tiny", "--test_model", "teacher", "--per_task_log",
+     "{dir}/tasks.jsonl", "--model_teacher", "test_teacher_TRX_2fcsup_fixed"],
 ])
 def test_cli_config_equals_jax(argv, tmp_path):
     """The port's eval flags build the config that the JAX package's
@@ -154,8 +159,10 @@ def test_cli_config_equals_jax(argv, tmp_path):
     args = p.parse_args(argv)
     want = jax_common.build_config(
         args, base=jax_common.load_saved_config(args.test_model_path))
-    _, got = torch_cli.parse(argv + ["--device", "cpu"])
+    targs, got = torch_cli.parse(argv + ["--device", "cpu"])
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (targs.test_model, targs.per_task_log) == \
+        (args.test_model, args.per_task_log)
 
 
 def test_cli_runs_on_cpu_without_jax():
@@ -197,7 +204,11 @@ def test_port_sources_import_no_jax():
     assert {"litemkd_torch/native/__init__.py", "litemkd_torch/data/video.py",
             "litemkd_torch/data/episodes.py", "litemkd_torch/data/prefetch.py",
             "litemkd_torch/cli/gen_fixed_split.py", "litemkd_torch/cli/pretrain.py",
-            "litemkd_torch/models/backbones/classifier_net.py"} <= scanned
+            "litemkd_torch/models/backbones/classifier_net.py",
+            "litemkd_torch/ops/strm.py", "litemkd_torch/models/backbones/strm.py",
+            "litemkd_torch/models/classifiers/strm.py",
+            "litemkd_torch/models/classifiers/edist.py",
+            "litemkd_torch/tools/confusion.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",
@@ -214,3 +225,178 @@ def test_entry_points_default_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(None)
+
+
+# ---------------------------------------------------------------------------
+# The eval extras: teacher mode, per-task logs, confusion analysis
+# ---------------------------------------------------------------------------
+
+EX_T, EX_D, EX_CLASSES, EX_VIDS, EX_TRAIN = 4, 64, 4, 6, 3
+
+
+@pytest.fixture(scope="module")
+def extras_dir(tmp_path_factory):
+    """A JPEG frame tree (4 classes × 6 videos of 4 random 40×48 frames;
+    3 test videos a class), the fused feature tree over the same videos,
+    and the split lists."""
+    from PIL import Image
+    root = tmp_path_factory.mktemp("eval_extras")
+    rng = np.random.default_rng(21)
+    lines = ([], [])
+    for c in range(EX_CLASSES):
+        for v in range(EX_VIDS):
+            name = f"class{c}/vid_{c}_{v}"
+            (root / "rgb" / name).mkdir(parents=True)
+            for f in range(EX_T):
+                Image.fromarray(rng.integers(0, 255, (40, 48, 3), np.uint8)).save(
+                    root / "rgb" / name / f"{f:05d}.jpg")
+            (root / "fused" / name).mkdir(parents=True)
+            np.save(root / "fused" / name / "feature.npy",
+                    rng.normal(size=(EX_T, EX_D)).astype(np.float32))
+            lines[v >= EX_TRAIN].append(name)
+    (root / "splits").mkdir()
+    for name, ls in zip(("trainlist03.txt", "testlist03.txt"), lines):
+        (root / "splits" / name).write_text("\n".join(ls) + "\n")
+    return root
+
+
+def _extras_argv(root, *extra):
+    return ["--preset", "tiny", "--dataset", "hmdb", "--rgb_path",
+            str(root / "rgb"), "--teacher_path", str(root / "fused"),
+            "--traintestlist", str(root / "splits"), "--num_test_tasks", "10",
+            "--num_workers", "0", *extra]
+
+
+def _fp32_presets(monkeypatch):
+    for common, config in ((jax_common, jax_config),
+                           (torch_common, torch_config)):
+        monkeypatch.setattr(common, "preset",
+                            lambda name, c=config: _cfg(c.preset, 0.3))
+
+
+def test_teacher_eval_cli_matches_jax(extras_dir, tmp_path, monkeypatch):
+    """``cli.test --test_model teacher`` in both packages from the same
+    JAX-exported teacher ``.pt`` (``bracnch.transformers.0``): the teacher
+    head's 'kl' logits on the fused features of 10 test episodes (a chunk
+    of 8 and a remainder of 2) give the same accuracy and CI (abs 1e-9).
+    Without ``-m`` the port's teacher gets seeded weights; a checkpoint
+    directory is refused."""
+    from litemkd_tpu.models import BatchedTeacher as JaxBatchedTeacher
+    from litemkd_tpu.cli import test as jax_test_cli
+    from litemkd_tpu.tools.torch_export import export_teacher_checkpoint
+    _fp32_presets(monkeypatch)
+    jcfg = _cfg(jax_config.preset, 0.3)
+    feats = np.zeros((1, 6, EX_T, EX_D), np.float32)
+    t_vars = jax.tree_util.tree_map(np.asarray, JaxBatchedTeacher(jcfg).init(
+        jax.random.key(4), feats, np.zeros((1, 6), np.int32), feats,
+        train=False))
+    path = str(tmp_path / "teacher.pt")
+    export_teacher_checkpoint(t_vars, jcfg, path)
+    argv = _extras_argv(extras_dir, "--test_model", "teacher")
+    want = jax_test_cli.main(argv + ["-m", path])
+    got = torch_cli.main(argv + ["-m", path, "--device", "cpu"])
+    assert got["n_tasks"] == want["n_tasks"] == 10
+    assert 0.0 < got["accuracy"] < 100.0
+    assert got["accuracy"] == pytest.approx(want["accuracy"], abs=1e-9)
+    assert got["confidence"] == pytest.approx(want["confidence"], abs=1e-9)
+    seeded = torch_cli.main(argv + ["--device", "cpu"])
+    assert seeded["n_tasks"] == 10
+    with pytest.raises(ValueError, match="directory"):
+        torch_cli.main(argv + ["-m", str(tmp_path), "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def task_logs(extras_dir, tmp_path_factory):
+    """Both packages' ``cli.test --per_task_log`` over 10 test episodes of
+    the frame tree, from the same JAX-exported student ``.pt``: (port
+    records, JAX records, port summary, log directory)."""
+    from litemkd_tpu.cli import test as jax_test_cli
+    from litemkd_tpu.tools.torch_export import export_student_checkpoint
+    from litemkd_tpu.tools.confusion import read_task_log as jax_read
+    out = tmp_path_factory.mktemp("task_logs")
+    with pytest.MonkeyPatch.context() as mp:
+        _fp32_presets(mp)
+        jcfg = _cfg(jax_config.preset, 0.3)
+        clips = np.zeros((1, 6, EX_T, 32, 32, 3), np.uint8)
+        variables = jax.tree_util.tree_map(np.asarray, JaxBatchedStudent(
+            jcfg).init(jax.random.key(5), clips, np.zeros((1, 6), np.int32),
+                       clips, train=False))
+        path = str(out / "student.pt")
+        export_student_checkpoint(variables, jcfg, path)
+        argv = _extras_argv(extras_dir, "-m", path)
+        jax_test_cli.main(argv + ["--per_task_log", str(out / "jax.jsonl")])
+        summary = torch_cli.main(argv + ["--per_task_log",
+                                         str(out / "port.jsonl"),
+                                         "--device", "cpu"])
+    from litemkd_torch.tools.confusion import read_task_log
+    return (read_task_log(str(out / "port.jsonl")),
+            jax_read(str(out / "jax.jsonl")), summary, out)
+
+
+def test_per_task_log_matches_jax(task_logs):
+    """One record per task in task order, across the chunk of 8 and the
+    remainder of 2 (the one-chunk-delayed host read keeps the order):
+    ``classes``, ``real_labels`` and ``real_preds`` equal to the JAX
+    package's, ``accuracy`` at abs 1e-9; the records' mean accuracy is the
+    summary's."""
+    got, want, summary, _ = task_logs
+    assert [r["task"] for r in got] == list(range(10))
+    assert len(want) == 10
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() == {"task", "accuracy", "classes",
+                                        "real_labels", "real_preds"}
+        for k in ("task", "classes", "real_labels", "real_preds"):
+            assert g[k] == w[k], k
+        assert g["accuracy"] == pytest.approx(w["accuracy"], abs=1e-9)
+        assert len(g["classes"]) == 3 and len(g["real_preds"]) == 3
+        assert set(g["real_preds"]) <= set(g["classes"])
+    mean = 100.0 * np.mean([r["accuracy"] for r in got])
+    assert mean == pytest.approx(summary["accuracy"], abs=1e-9)
+
+
+def test_confusion_tools_match_jax(task_logs):
+    """``tools/confusion`` on the port's records against the JAX package's
+    tool: the matrix, the class ids, per-class accuracy, the most-confused
+    pairs and the CSV text; every query is counted once, and the diagonal
+    sums to the correct predictions. ``render_png`` writes a figure."""
+    from litemkd_tpu.tools import confusion as jconf
+    from litemkd_torch.tools import confusion as tconf
+    records, _, _, out = task_logs
+    m, ids = tconf.confusion_from_records(records)
+    jm, jids = jconf.confusion_from_records(records)
+    assert ids == jids and m.dtype == np.int64
+    np.testing.assert_array_equal(m, jm)
+    assert m.sum() == sum(len(r["real_labels"]) for r in records)
+    assert np.trace(m) == sum(t == p for r in records
+                              for t, p in zip(r["real_labels"], r["real_preds"]))
+    np.testing.assert_array_equal(tconf.per_class_accuracy(m),
+                                  jconf.per_class_accuracy(jm))
+    assert tconf.most_confused(m, ids, top=5) == jconf.most_confused(jm, jids, top=5)
+    names = {c: f"class{c}" for c in ids}
+    tconf.write_csv(m, ids, str(out / "port.csv"), names)
+    jconf.write_csv(jm, jids, str(out / "jax.csv"), names)
+    assert (out / "port.csv").read_text() == (out / "jax.csv").read_text()
+    png = tconf.render_png(m, ids, str(out / "confusion.png"))
+    assert Path(png).stat().st_size > 0
+
+
+def test_metrics_task_confusion_matches_jax():
+    """``task_confusion`` and ``real_class_preds``: episode-local argmax
+    predictions mapped through each episode's class list, batched and
+    single, equal to the JAX package's."""
+    from litemkd_tpu.utils import metrics as jmetrics
+    from litemkd_torch.utils import metrics as tmetrics
+    rng = np.random.default_rng(6)
+    logits = rng.normal(size=(3, 7, 5)).astype(np.float32)
+    classes = np.stack([rng.permutation(40)[:5] for _ in range(3)]).astype(np.int32)
+    want = np.asarray(jmetrics.task_confusion(logits, classes))
+    got = tmetrics.task_confusion(torch.from_numpy(logits), torch.from_numpy(classes))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tmetrics.task_confusion(torch.from_numpy(logits[1]),
+                                torch.from_numpy(classes[1])).numpy(), want[1])
+    preds = rng.integers(0, 5, (3, 7))
+    np.testing.assert_array_equal(
+        tmetrics.real_class_preds(torch.from_numpy(preds),
+                                  torch.from_numpy(classes)).numpy(),
+        np.asarray(jmetrics.real_class_preds(preds, classes)))

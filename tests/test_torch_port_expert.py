@@ -28,7 +28,8 @@ from litemkd_tpu.train.teacher_steps import (
 import litemkd_torch.config as torch_config
 from litemkd_torch.cli import train as torch_train_cli
 from litemkd_torch.models import BatchedTeacher
-from litemkd_torch.models.backbones import ActionRecognitionNet, ResNetBackbone
+from litemkd_torch.models.backbones import (ActionRecognitionNet, ResNetBackbone,
+                                           ViTClassifier)
 from litemkd_torch.tools.weights import (classifier_net_state_dict_from_jax,
                                          load_pretrain_init,
                                          load_student_checkpoint,
@@ -290,8 +291,9 @@ def test_pretrain_step_lr_matches_jax_schedule():
         assert got == pytest.approx(want, rel=1e-12), step
         state.optimizer.step()
         state.scheduler.step()
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        make_pretrain_model(cfg, 5, "deit_small")
+    assert isinstance(make_pretrain_model(cfg, 5, "deit_small"), ViTClassifier)
+    with pytest.raises(ValueError, match="unknown pretrain arch"):
+        make_pretrain_model(cfg, 5, "vgg16")
 
 
 # ---------------------------------------------------------------------------
