@@ -79,7 +79,24 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    record a task in order, their mean the summary's, a confusion matrix
    counting every query once); then the device-resident ``expert_strm``
    and ``expert_baseline`` steps and the DeiT pretrain step with peak
-   memory. Phase 3's shapes cover these paths.
+   memory. Phase 3's shapes cover these paths;
+10. the rest of the student zoo and the skeleton expert: full-width
+   ``student_mobilenet`` (MobileNetV3-large 2-fc, cuDNN BatchNorm) trained
+   from phase 7's tree against phase 6's fused tree through
+   ``litemkd_torch.cli.train`` (2 steps of 16 episodes in chunks of 4, an
+   8-episode eval) and its checkpoint through ``litemkd_torch.cli.test``,
+   with the launch counts derived from the modules read around each; each
+   TRX, OTAM, TRX_multi and CTX head at tiny width on the card against
+   the CPU and at full width for one training chunk, launches counted;
+   ``preset("expert_skeleton_trx")`` at full width on seeded skeleton
+   clips (the tiny expert card-vs-CPU first): two SGD steps and an eval
+   chunk with the launches counted, then its device step; the
+   device-resident training step and eval chunk of ``student_mobilenet``
+   with peak memory (the flagship's are phases 5 and 4's). Phase 3 adds the TCT
+   kernel at CTX's shape (E 4, Q 25, U 8), checks it at the zoo's other
+   full-width shapes (TRX_multi/TRM's U 56 chunk, the skeleton expert's
+   16-episode step) at every group size that fits, and its tiny checks a
+   ``student_mobilenet`` train step card-vs-CPU.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -130,10 +147,16 @@ EVAL = dict(e=8, q=5, u=28, dk=1152, w=5, s=5)    # main path: 8-episode eval ch
 TRAIN = dict(e=4, q=25, u=28, dk=1152, w=5, s=5)  # training micro-batch of 4
 MFM_TRAIN = dict(e=16, q=25, u=28, dk=1152, w=5, s=5)  # MFM step: 16 episodes at once
 EXPERT_TRAIN = dict(e=4, q=20, u=28, dk=1152, w=5, s=5)  # expert_trx chunk: qpc 4
+CTX_TRAIN = dict(e=4, q=25, u=8, dk=1152, w=5, s=5)  # CTX: single frames, U = 8
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
           dict(e=3, q=11, u=28, dk=100, w=7, s=3),
           dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
           dict(e=1, q=3, u=56, dk=1152, w=5, s=5)]   # U=56 (temp set 3)
+# the zoo's full-width shapes that no shape above covers: TRX_multi/TRM's
+# temp-set-3 chunk (U 56 at G 2 on 132 SMs) and the skeleton expert's step
+# (16 episodes of 4 queries a class, G 4)
+ZOO_SHAPES = [dict(e=4, q=25, u=56, dk=1152, w=5, s=5),
+              dict(e=16, q=20, u=28, dk=1152, w=5, s=5)]
 N_TASKS = 16
 # noise 1.0 keeps accuracy off 100% (at the default 0.3 every episode of the
 # random-weight student scores 1.0), so equal accuracies say something
@@ -285,7 +308,8 @@ def tct_phase():
     times = {}
     for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1),
                               ("mfm_train", MFM_TRAIN, 3),
-                              ("expert_train", EXPERT_TRAIN, 4)):
+                              ("expert_train", EXPERT_TRAIN, 4),
+                              ("ctx_train", CTX_TRAIN, 7)):
         args, err = check_kernel(shape, seed)
         times[name] = time_kernel(shape, args)
         auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
@@ -309,6 +333,13 @@ def tct_phase():
         del args
     for i, shape in enumerate(RAGGED):
         check_kernel(shape, 2 + i)
+    lib = ta._library()
+    for i, shape in enumerate(ZOO_SHAPES):
+        args, _ = check_kernel(shape, 8 + i)
+        for g in ta.GROUPS:     # each group size whose score tile fits
+            if lib.tct_attention_smem_bytes(shape["s"], shape["u"], g):
+                check_kernel(shape, 8 + i, group=g, args=args)
+        del args
     return err_eval, times
 
 
@@ -640,29 +671,40 @@ def _max_err(got, want):
     return (got.detach().cpu() - want.detach().cpu()).abs().max().item()
 
 
-def train_reference_check():
-    """One train step of the tiny preset in fp32 with the BN kernels on,
-    dropout 0 and the teacher, on the card against the same weights and
-    batch on the CPU. BN biases start at +3, so no pre-activation sits at a
-    ReLU kink (there a last-bit difference flips a mask). Tolerances:
-    metrics 1e-4 relative; gradients 1e-3·max|g| over all parameters;
-    running statistics 1e-4·max; updated parameters the learning rate
-    times the gradients' tolerance, + 1e-6·max|p|."""
+def _bn_bias_3(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.bias.fill_(3.0)
+
+
+def train_reference_check(label="tiny fp32 train step", set_bn_bias=_bn_bias_3,
+                          cpu_dtype="float32", mean_by_spread=False, **model):
+    """One train step of the tiny preset in fp32 (with ``model`` overrides;
+    by default the BN kernels on), dropout 0 and the teacher, on the card
+    against the same weights and batch on the CPU, there in ``cpu_dtype``.
+    ``set_bn_bias`` moves the BN biases so that no pre-activation sits at
+    an activation's kink (there a last-bit difference flips a mask): +3
+    before a ReLU. Tolerances: metrics 1e-4 relative; gradients
+    1e-3·max|g| over all parameters; running statistics 1e-4·max, with
+    ``mean_by_spread`` a running mean's max at least the momentum times
+    the channel's largest running standard deviation (a batch mean of
+    centred activations is a difference of large sums, so its rounding
+    error scales with their spread, not with the mean); updated parameters
+    the learning rate times the gradients' tolerance, + 1e-6·max|p|."""
     base = preset("tiny")
     cfg = base.replace(model=dataclasses.replace(
-        base.model, compute_dtype="float32", pallas_bn=True, trans_dropout=0.0))
+        base.model, **{"compute_dtype": "float32", "pallas_bn": True,
+                       "trans_dropout": 0.0, **model}))
+    ref = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=cpu_dtype))
     batch = build_sampler(cfg).sample_batch(np.random.default_rng(0),
                                             cfg.train.tasks_per_batch)
-    cpu = create_train_state(cfg, "cpu")
+    cpu = create_train_state(ref, "cpu")
     with torch.no_grad():
-        for m in cpu.model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.bias.fill_(3.0)
+        set_bn_bias(cpu.model)
     gpu = create_train_state(cfg, "cuda", student_state_dict=cpu.model.state_dict(),
                              teacher_state_dict=cpu.teacher.state_dict())
-    step = make_train_step(cfg)
-    m_cpu = step(cpu, to_device(batch, torch.device("cpu")))
-    m_gpu = step(gpu, to_device(batch, torch.device("cuda")))
+    m_cpu = make_train_step(ref)(cpu, to_device(batch, torch.device("cpu")))
+    m_gpu = make_train_step(cfg)(gpu, to_device(batch, torch.device("cuda")))
     torch.cuda.synchronize()
     for k, v in m_cpu.items():
         if not abs(m_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-6:
@@ -685,10 +727,15 @@ def train_reference_check():
     for n, b in cpu.model.named_buffers():
         if n.endswith(("running_mean", "running_var")):
             err = _max_err(gb[n], b)
-            if not err <= 1e-4 * b.abs().max().item():
+            scale = b.abs().max().item()
+            if mean_by_spread and n.endswith("running_mean"):
+                bn_mod = cpu.model.get_submodule(n.rsplit(".", 1)[0])
+                var = cpu.model.get_buffer(n[:-len("mean")] + "var")
+                scale = max(scale, bn_mod.momentum * var.max().item() ** 0.5)
+            if not err <= 1e-4 * scale:
                 raise AssertionError(f"running statistic {n}: {err}")
-            s_err = max(s_err, err / b.abs().max().item())
-    log(f"[reference] tiny fp32 train step, cuda vs cpu: metrics "
+            s_err = max(s_err, err / scale)
+    log(f"[reference] {label}, cuda vs cpu: metrics "
         + ", ".join(f"{k}={m_gpu[k].item():.6g}/{v.item():.6g}" for k, v in m_cpu.items())
         + f"; grads max_abs_err={g_err:.3e} (max|g|={g_max:.3e}); running stats "
         f"{s_err:.3e} of max; updated params {p_err:.3e} of max")
@@ -1364,26 +1411,22 @@ EXPERT_RATE_SETTINGS = [(True, 4, True), (True, 4, False), (False, 2, True),
 
 
 def student_tct_calls(cfg):
-    """TCT calls of one forward of ``cfg``'s student: forward hooks count
-    them on a CPU copy with the same backbone, head and widths at the tiny
-    episode geometry (32 px)."""
+    """TCT kernel launches of one forward of ``cfg``'s student: the calls
+    of the kernel's wrapper (:func:`tct_wrapper_calls`) on a CPU copy with
+    the same backbone, head and widths at the tiny episode geometry (32
+    px)."""
     from litemkd_torch.models import BatchedStudent
-    from litemkd_torch.ops.tct import TemporalCrossTransformer
     tiny = preset("tiny")
     small = tiny.replace(model=dataclasses.replace(
         cfg.model, compute_dtype="float32", pallas_bn=False))
     model = BatchedStudent(small).eval()
-    calls = [0]
-    for m in model.modules():
-        if isinstance(m, TemporalCrossTransformer):
-            m.register_forward_hook(lambda *a: calls.__setitem__(0, calls[0] + 1))
     batch = SyntheticEpisodeSource(small, n_classes=8, seed=0,
                                    with_teacher_feats=False).sample_batch(
         np.random.default_rng(0), 1, train=False)
     b = to_device(batch, torch.device("cpu"))
     with torch.inference_mode():
-        model(b.support_clips, b.support_labels, b.query_clips)
-    return calls[0]
+        return tct_wrapper_calls(lambda: model(b.support_clips, b.support_labels,
+                                               b.query_clips))
 
 
 def expert_launches(cfg):
@@ -1781,6 +1824,336 @@ def zoo_main_path(label, run_root):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The rest of the student zoo and the skeleton expert
+# ---------------------------------------------------------------------------
+
+MOBILE_ARGV = ["--preset", "student_mobilenet"] + VIDEO_ARGV[3:]
+ZOO_HEADS = ["TRX_sup", "TRX_sup_fixed", "TRX_2fc", "TRX_1fc_sup", "TRX_2fcsup_2",
+             "TRX_2fcsup_2_fixed", "OTAM", "CNN_OTAM", "TRX_multi", "TRM", "CTX",
+             "CTX_videoaxis"]
+TWO_STREAM_HEADS = {"TRX_2fc", "TRX_2fcsup_2"}
+ZOO_TEMP_SET = (2, 3)    # TRX_multi/TRM: two TCT sets, U = 28 and 56
+
+
+def _mobilenet_bn_bias(model):
+    """+3 on a BatchNorm before a ReLU, 0 elsewhere (hard-swish bends at
+    ±3, three standard deviations from a zero-bias BatchNorm's output)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.bias.zero_()
+        if isinstance(m, torch.nn.Sequential) and len(m) == 3 and \
+                isinstance(m[1], torch.nn.BatchNorm2d) and m[2].fn is F.relu:
+            m[1].bias.fill_(3.0)
+
+
+def tct_wrapper_calls(fn):
+    """Calls of the TCT kernel's wrapper during ``fn()`` (run on the CPU,
+    where the wrapper takes the plain version): what the same modules
+    launch on the card."""
+    from litemkd_torch.ops import tct as tct_mod
+    real, calls = tct_mod.tct_attention, [0]
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    tct_mod.tct_attention = counted
+    try:
+        fn()
+    finally:
+        tct_mod.tct_attention = real
+    return calls[0]
+
+
+def _head_inputs(name, e, s, q, t, d, way, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    streams = ("f1", "f2") if name in TWO_STREAM_HEADS else (None,)
+
+    def feats(n):
+        out = {k: torch.randn((e, n, t, d), generator=g, device=device)
+               for k in streams}
+        return out[None] if streams == (None,) else out
+
+    labels = torch.stack([torch.randperm(s, generator=g, device=device) % way
+                          for _ in range(e)])
+    return feats(s), labels, feats(q)
+
+
+def _logits(out):
+    return out if isinstance(out, dict) else {"logits": out}
+
+
+def zoo_heads_check(label):
+    """Each head of this slice: at tiny width in fp32 on the card against
+    the same weights and features on the CPU (1e-4·max per output), with
+    the TCT launches on the card equal to the wrapper's calls on the CPU;
+    then at full width (D 2048, dk 1152, 5-way 5-shot, 5 queries a class,
+    8 frames, 4 episodes) for one training chunk, forward and backward,
+    finite outputs and gradients, the launches again as the modules call
+    them. Returns the summed launches of the full-width chunks."""
+    from litemkd_torch.models import init_student_, make_classifier
+    total, rows = 0, []
+    for name in ZOO_HEADS:
+        base = preset("tiny")
+        cfg = base.replace(model=dataclasses.replace(
+            base.model, compute_dtype="float32", trans_dropout=0.0,
+            temp_set=ZOO_TEMP_SET))
+        ep = cfg.episode
+        cpu = make_classifier(name, cfg).eval()
+        init_student_(cpu, torch.Generator().manual_seed(1))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        args = _head_inputs(name, 2, ep.way * ep.shot, ep.way * ep.query_per_class,
+                            ep.seq_len, cfg.model.trans_linear_in_dim, ep.way,
+                            "cpu", 2)
+        with torch.no_grad():
+            calls = tct_wrapper_calls(lambda: cpu(*args))
+            want = _logits(cpu(*args))
+            zero_counts()
+            got = _logits(gpu(*(to_device_any(a, "cuda") for a in args)))
+            torch.cuda.synchronize()
+            launched = read_counts()["tct_attention"]
+        err = max(_max_err(got[k], want[k]) / max(want[k].abs().max().item(), 1e-30)
+                  for k in want)
+        if launched != calls or not err <= 1e-4 or got.keys() != want.keys():
+            raise AssertionError(f"{name} on the card: relative error {err}, "
+                                 f"launches {launched} (the CPU calls {calls})")
+        full = preset("student_fc2sup_dist")
+        fcfg = full.replace(model=dataclasses.replace(
+            full.model, classifier=name, temp_set=ZOO_TEMP_SET))
+        fe = fcfg.episode
+        head = init_student_(make_classifier(name, fcfg),
+                             torch.Generator().manual_seed(4)).to("cuda").train()
+        fargs = _head_inputs(name, TRAIN["e"], fe.way * fe.shot,
+                             fe.way * fe.query_per_class, fe.seq_len,
+                             fcfg.model.trans_linear_in_dim, fe.way, "cuda", 3)
+        for a in fargs:
+            for x in (a.values() if isinstance(a, dict) else [a]):
+                x.requires_grad_(x.is_floating_point())
+        zero_counts()
+        out = _logits(head(*fargs))
+        sum(v.float().sum() for v in out.values()).backward()
+        torch.cuda.synchronize()
+        n = read_counts()["tct_attention"]
+        grads = [p.grad for p in head.parameters() if p.grad is not None]
+        grads += [x.grad for a in (fargs[0], fargs[2])
+                  for x in (a.values() if isinstance(a, dict) else [a])]
+        if n != calls or not all(torch.isfinite(v).all() for v in out.values()) or \
+                not all(torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"{name} at full width: launches {n} (the "
+                                 f"modules call {calls}), or non-finite values")
+        total += n
+        rows.append(f"{name} {n} launch(es), rel err {err:.2e}")
+        del head, fargs, out, grads
+    torch.cuda.empty_cache()
+    log(f"[zoo] heads card vs cpu (tiny fp32) and one full-width training chunk "
+        f"each on {label}: " + "; ".join(rows) + f"; {total} launches at full width")
+    return total
+
+
+def to_device_any(x, device):
+    if isinstance(x, dict):
+        return {k: v.to(device) for k, v in x.items()}
+    return x.to(device)
+
+
+def skeleton_batch(cfg, e, q_per_class, device, seed=0):
+    """An episode batch of seeded skeleton clips (J = 17 joints × 3
+    coordinates a frame) made on ``device``; no teacher features."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ep = cfg.episode
+    s, q = ep.way * ep.shot, ep.way * q_per_class
+
+    def labels(n):
+        return torch.stack([torch.randperm(n, generator=g, device=device) % ep.way
+                            for _ in range(e)])
+
+    def clips(n):
+        return torch.randn((e, n, ep.seq_len, 17, 3), generator=g, device=device)
+
+    return EpisodeBatch(clips(s), labels(s), clips(q), labels(q))
+
+
+def skeleton_expert_path(label):
+    """``preset("expert_skeleton_trx")`` at full width (D 2048, 8 frames,
+    5-way 5-shot, 4 queries a class, 16 episodes in one fused step, fp32):
+    the tiny expert on the card against the CPU (logits 1e-4·max), then two
+    SGD steps and one 8-episode eval chunk on seeded skeleton clips on the
+    card, the TCT launches counted around them against the modules' calls
+    (its batches carry no teacher features, so no teacher runs); then the
+    device step's time and peak memory. Returns the launches."""
+    from litemkd_torch.models import BatchedStudent, init_student_
+    from litemkd_torch.train import make_eval_step
+    base = preset("tiny")
+    tiny = base.replace(model=dataclasses.replace(
+        base.model, backbone="s3d", classifier="TRX", trans_dropout=0.0))
+    cpu = BatchedStudent(tiny).eval()
+    init_student_(cpu, torch.Generator().manual_seed(4))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    b = skeleton_batch(tiny, 2, 2, "cpu", 5)
+    with torch.no_grad():
+        calls = tct_wrapper_calls(lambda: cpu(*b[:3]))
+        want = cpu(*b[:3])["logits"]
+        got = gpu(*(x.to("cuda") for x in b[:3]))["logits"]
+    err = _max_err(got, want) / want.abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"tiny skeleton expert on the card: rel err {err}")
+
+    cfg = preset("expert_skeleton_trx")
+    ep = cfg.episode
+    state = create_train_state(cfg, "cuda", with_teacher=False)
+    step = make_train_step(cfg)
+    batch = skeleton_batch(cfg, TRAIN_EPISODES, ep.query_per_class, "cuda", 6)
+    evalb = skeleton_batch(cfg, 8, ep.query_per_class_test, "cuda", 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    metrics = [step(state, batch) for _ in range(2)]
+    acc = make_eval_step(cfg)(state.model.eval(), evalb)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_counts = dict(tct_attention=3 * calls, bn_sums=0, bn_bwd_sums=0)
+    losses = [m["task_loss"].item() for m in metrics]
+    log(f"[skeleton] expert_skeleton_trx on {label}: 2 steps of {TRAIN_EPISODES} "
+        f"episodes, task_loss {losses}, eval accuracies {acc.tolist()}; launches "
+        f"{counts}, expected {want_counts} ({calls} a forward); tiny card vs cpu "
+        f"rel err {err:.2e}")
+    if counts != want_counts or not all(math.isfinite(x) for x in losses) or \
+            acc.shape != (8,) or not torch.isfinite(acc).all():
+        raise AssertionError(f"skeleton expert: launches {counts}, losses {losses}")
+    state.model.train()
+    ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+    log(f"[skeleton] device-resident expert_skeleton_trx training on {label}: "
+        f"{1e3 * TRAIN_EPISODES / ms:.3f} episodes/s ({ms:.3f} ms per "
+        f"{TRAIN_EPISODES}-episode step, one fused chunk of "
+        f"{TRAIN_EPISODES * ep.way * (ep.shot + ep.query_per_class) * ep.seq_len} "
+        f"frames, fp32); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_step(lambda: step(state, batch), "expert_skeleton_trx step")
+    del state, batch, evalb
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mobilenet_main_path(label, run_root):
+    """Full-width ``student_mobilenet`` (MobileNetV3-large 2-fc, cuDNN
+    BatchNorm) trained from phase 7's JPEG tree through ``cli.train``
+    against phase 6's fused tree (2 steps of 16 episodes in chunks of 4, an
+    8-episode eval), then its checkpoint through ``cli.test`` (8 episodes),
+    with the launch counts read around each: the flagship's TCT launches
+    (kl and ce a chunk, the frozen teacher in training), no BN kernel.
+    Returns the summed counts."""
+    from litemkd_torch.data import EpisodeSampler
+    frames, splits, fused = run_root / "frames", run_root / "tree" / "splits", run_root / "fused"
+    ckdir = run_root / "mobile"
+    data = ["--rgb_path", str(frames), "--traintestlist", str(splits)]
+    draw = [0.0]
+    orig = _timed(EpisodeSampler, "sample_batch", draw)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        _, history = cli_train.main(MOBILE_ARGV + data + ["--teacher_path", str(fused),
+                                                          "-c", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        EpisodeSampler.sample_batch = orig
+    cfg = cli_train.parse(MOBILE_ARGV + data)[1]
+    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    calls = student_tct_calls(cfg)
+    want = dict(tct_attention=(calls + 1) * chunks + calls * math.ceil(EVAL_TASKS / 8),
+                bn_sums=0, bn_bwd_sums=0)
+    log(f"[mobile] student_mobilenet training launches {counts}, expected {want} "
+        f"({calls} TCT calls a student forward, {chunks} chunks)")
+    if counts != want:
+        raise AssertionError(f"student_mobilenet launch counts {counts} != {want}")
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            math.isfinite(r[k]) for r in steps for k in r):
+        raise AssertionError(f"bad student_mobilenet training metrics {steps}")
+    if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
+        raise AssertionError(f"bad student_mobilenet mid-training eval {history}")
+    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    log("[mobile] per-step metrics: " + json.dumps(
+        [{k: r[k] for k in ("step", "task_loss", "soft_loss", "hard_loss", "accuracy")}
+         for r in steps]) + f"; eval {history[0]}")
+    log(f"[mobile] student_mobilenet through cli.train from the JPEG tree on {label}: "
+        f"{n_eps / wall:.3f} episodes/s end to end ({wall:.2f} s for {n_eps} training "
+        f"+ {EVAL_TASKS} eval episodes, model set-up and checkpoint write included; "
+        f"host batch assembly {draw[0]:.2f} s on the prefetch thread); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ckpt = ckdir / f"checkpoint_{n_eps}.pt"
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = cli_test.main(["-m", str(ckpt), "--num_test_tasks", str(EVAL_TASKS),
+                             "--device", "cuda"] + data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    test_counts = read_counts()
+    want = dict(tct_attention=calls * math.ceil(EVAL_TASKS / 8), bn_sums=0,
+                bn_bwd_sums=0)
+    log(f"[mobile] {ckpt.name} through cli.test on {label}: {summary}; launches "
+        f"{test_counts}, expected {want}; {EVAL_TASKS / wall:.3f} episodes/s end "
+        f"to end ({wall:.2f} s)")
+    if test_counts != want or summary["n_tasks"] != EVAL_TASKS or \
+            not math.isfinite(summary["accuracy"]):
+        raise AssertionError(f"bad eval of the student_mobilenet checkpoint: "
+                             f"{summary}, {test_counts}")
+    torch.cuda.empty_cache()
+    return {k: counts[k] + test_counts[k] for k in counts}
+
+
+def mobilenet_device_rate(label):
+    """The device-resident ``student_mobilenet`` training step (16
+    episodes, chunks of 4; CUDA events over 3 steps after one warm-up) and
+    eval chunk (8 episodes, 1 query a class), with peak memory, then one
+    step under the profiler. The resnet18 flagship's, on the same card in
+    the same run, are phase 5's cuDNN step and phase 4's eval chunk."""
+    from litemkd_torch.cli.test import load_student
+    cfg = preset("student_mobilenet")
+    state = create_train_state(cfg, "cuda")
+    batch = device_batch(cfg, TRAIN_EPISODES)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile_step(lambda: step(state, batch), "student_mobilenet step")
+    del state, batch
+    torch.cuda.empty_cache()
+    ecfg = cfg.replace(episode=dataclasses.replace(
+        cfg.episode, query_per_class=cfg.episode.query_per_class_test))
+    model = load_student(ecfg, None, "cuda")
+    eb = device_batch(ecfg, 8)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ems = cuda_ms(lambda: model(eb.support_clips, eb.support_labels,
+                                    eb.query_clips), 5, warmup=1)
+    epeak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[zoo] device-resident student_mobilenet ({cfg.model.backbone}) on "
+        f"{label}: training {1e3 * TRAIN_EPISODES / ms:.3f} episodes/s ({ms:.3f} "
+        f"ms per {TRAIN_EPISODES}-episode step of "
+        f"{TRAIN_EPISODES // cfg.train.micro_batch} chunks, cuDNN BatchNorm), peak "
+        f"{peak:.3f} GiB; eval {8e3 / ems:.3f} episodes/s ({ems:.3f} ms per "
+        f"8-episode chunk), peak {epeak:.3f} GiB")
+    del model, eb
+    torch.cuda.empty_cache()
+
+
+def student_zoo_path(label, run_root):
+    """Phase 10: ``student_mobilenet`` through its CLIs on the trees of
+    phases 6 and 7, each zoo head on the card, the skeleton expert, and the
+    device-resident rates. Returns the summed launch counts of the CLI
+    runs, the full-width head chunks and the skeleton expert."""
+    counts = mobilenet_main_path(label, run_root)
+    counts["tct_attention"] += zoo_heads_check(label)
+    skel = skeleton_expert_path(label)
+    mobilenet_device_rate(label)
+    return {k: counts[k] + skel[k] for k in counts}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1811,6 +2184,11 @@ def main():
         ragged=False)
     reference_check()
     train_reference_check()
+    # against float64 on the CPU: at 32 px the CPU's own fp32 gradients of
+    # this trunk are 1% of max|g| off its float64 ones, an H100's 2e-5
+    train_reference_check("tiny fp32 student_mobilenet train step (mobilenetv3_large_2fc)"
+                          ", cpu in float64", _mobilenet_bn_bias, "float64",
+                          mean_by_spread=True, backbone="mobilenetv3_large_2fc", pallas_bn=False)
 
     # 4. eval path through the CLI, launch counts read around it
     torch.cuda.reset_peak_memory_stats()
@@ -1860,6 +2238,8 @@ def main():
         # 9. the STRM and Baseline experts, DeiT pretraining and the eval
         # extras on the trees of phases 6 and 7
         zoo_counts = zoo_main_path(smi.splitlines()[0], run_root)
+        # 10. the rest of the student zoo and the skeleton expert
+        student_zoo_counts = student_zoo_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -1871,6 +2251,10 @@ def main():
         log(f"[expert] bn_{key} per expert_trx chunk: kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} (max_abs_err {expert_bn_err:.3e})")
+    t = tct_times["ctx_train"]
+    log(f"[zoo] TCT kernel at CTX's training shape {CTX_TRAIN}: kernel_ms="
+        f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+        f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, split TF32)")
     t = tct_times["mfm_train"]
     log(f"[mfm] TCT kernel at the MFM training shape {MFM_TRAIN}: kernel_ms="
         f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
@@ -1882,18 +2266,21 @@ def main():
              replaces="litemkd_tpu/ops/pallas_tct.py:61",
              launches=(counts["tct_attention"] + mfm_counts["tct_attention"]
                        + video_counts["tct_attention"]
-                       + expert_counts["tct_attention"] + zoo_counts["tct_attention"]),
+                       + expert_counts["tct_attention"] + zoo_counts["tct_attention"]
+                       + student_zoo_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=(counts["bn_sums"] + video_counts["bn_sums"]
-                       + expert_counts["bn_sums"] + zoo_counts["bn_sums"]),
+                       + expert_counts["bn_sums"] + zoo_counts["bn_sums"]
+                       + student_zoo_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:103",
              launches=(counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"]
-                       + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]),
+                       + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]
+                       + student_zoo_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

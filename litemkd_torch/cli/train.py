@@ -14,8 +14,9 @@ draws clips and features in memory instead. Runs on cuda unless
 ``--device`` says otherwise, with TF32 off in matrix products and
 convolutions (the bf16 trunk is unaffected). ``--teacher_checkpoint`` loads a
 reference-layout teacher ``.pt``; ``--init_checkpoint`` warm-starts the
-student from a reference student ``.pt``, a run.py expert artifact or a
-torchvision resnet zoo file (the trunk alone; the rest keeps its seeded
+student from a reference student ``.pt``, a run.py, TRM, CNN_STRM, S3D or
+teacher-half CTX expert artifact, or a torchvision resnet or
+``mobilenet_v3`` zoo file (the trunk alone; the rest keeps its seeded
 init); otherwise both get random weights from the seed. Checkpoints and
 ``config.json`` go to ``-c``; the eval CLI reads them with
 ``-m <dir>/checkpoint_<episodes>.pt``. The per-modality TRX expert
@@ -50,7 +51,8 @@ def parse(argv=None):
     add_device_arg(p)
     p.add_argument("--init_checkpoint", default=None,
                    help="warm-start the student from a reference student "
-                        ".pt, a run.py expert .pt or a torchvision resnet "
+                        ".pt, an expert .pt (run.py, TRM, CNN_STRM, S3D, "
+                        "teacher CTX) or a torchvision resnet/mobilenet_v3 "
                         "zoo file (trunk only)")
     args = p.parse_args(argv)
     return args, build_config(args)

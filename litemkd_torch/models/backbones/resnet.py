@@ -252,3 +252,12 @@ class ResNetBackbone(nn.Module):
         return litemkd_feature_head(
             x, b, t, tuple(getattr(self, n) for n in self.fc_names),
             self.pool_hw, self.pool)
+
+
+class FeatureBackbone(nn.Module):
+    """The identity backbone for precomputed features
+    (``litemkd_tpu/models/backbones/resnet.py:225-235``): the teacher's
+    episodes, with a CNN backbone's calling convention."""
+
+    def forward(self, feats: Features) -> Features:
+        return feats

@@ -1,5 +1,4 @@
-"""TRX classifier heads (port of ``litemkd_tpu/models/classifiers/trx.py:35-58,
-92-119``).
+"""TRX classifier heads (port of ``litemkd_tpu/models/classifiers/trx.py:35-150``).
 
 Calling convention, with an explicit leading episode axis E::
 
@@ -17,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.distances import support_dk_logits
+from ...ops.distances import safe_norm, support_dk_logits
+from ...ops.dtypes import anchor
 from ...ops.tct import TemporalCrossTransformer
 
 
@@ -36,6 +36,38 @@ class TRX(nn.Module):
     def forward(self, context, context_labels, target):
         return self.transformers(context, context_labels, target)
 
+    def sup(self, context, context_labels):
+        return support_dk_logits(context, context_labels, self.way, self.shot,
+                                 self.seq_len)
+
+
+class TRX_sup(TRX):
+    """The TCT's query logits ('query') and the (E, Q, way, way) cosine
+    similarities between each query's class prototypes, flattened over
+    tuples × dk ('support_set'; ``TRX_sup.py:140-229``). The prototypes
+    come from the plain version on every device, as in the JAX package
+    (:meth:`TemporalCrossTransformer.forward`), so this head launches no
+    TCT kernel."""
+
+    def forward(self, context, context_labels, target):
+        logits, proto = self.transformers(context, context_labels, target,
+                                          return_prototypes=True)
+        flat = anchor(proto.flatten(3))
+        norm = flat / (safe_norm(flat, -1, keepdims=True) + 1e-8)
+        sim = torch.einsum("eqid,eqjd->eqij", norm, norm)
+        return {"support_set": sim, "query": logits}
+
+
+class TRX_2fc(TRX):
+    """One shared TCT on both streams → {'fc_1', 'fc_2'}
+    (``TRX_2fc.py:163-192``)."""
+
+    def forward(self, context, context_labels, target):
+        return {"fc_1": self.transformers(context["f1"], context_labels,
+                                          target["f1"]),
+                "fc_2": self.transformers(context["f2"], context_labels,
+                                          target["f2"])}
+
 
 class TRX_2fcsup(TRX):
     """The paper's student head: one shared TCT turns stream 1 into 'kl'
@@ -44,9 +76,7 @@ class TRX_2fcsup(TRX):
     def forward(self, context, context_labels, target):
         kl = self.transformers(context["f1"], context_labels, target["f1"])
         ce = self.transformers(context["f2"], context_labels, target["f2"])
-        sup = support_dk_logits(context["f2"], context_labels, self.way,
-                                self.shot, self.seq_len)
-        return {"kl": kl, "ce": ce, "sup": sup}
+        return {"kl": kl, "ce": ce, "sup": self.sup(context["f2"], context_labels)}
 
 
 class TRX_2fcsup_fixed(TRX):
@@ -55,6 +85,22 @@ class TRX_2fcsup_fixed(TRX):
 
     def forward(self, context, context_labels, target):
         kl = self.transformers(context, context_labels, target)
-        sup = support_dk_logits(context, context_labels, self.way, self.shot,
-                                self.seq_len)
-        return {"kl": kl, "sup": sup}
+        return {"kl": kl, "sup": self.sup(context, context_labels)}
+
+
+# the single-stream student head has the fixed teacher head's body
+TRX_1fc_sup = TRX_2fcsup_fixed
+
+
+class TRX_2fcsup_2(TRX):
+    """TRX_2fcsup with SupportDK on both streams → {'kl', 'ce', 'sup_kl',
+    'sup_ce'}, the head of the ``fc_2_sup_2`` distiller (recovered in the
+    JAX package from the release's compiled ``TRX_2fcsup_2``, whose
+    ``_fixed`` teacher variant is :class:`TRX_2fcsup_fixed`)."""
+
+    def forward(self, context, context_labels, target):
+        kl = self.transformers(context["f1"], context_labels, target["f1"])
+        ce = self.transformers(context["f2"], context_labels, target["f2"])
+        return {"kl": kl, "ce": ce,
+                "sup_kl": self.sup(context["f1"], context_labels),
+                "sup_ce": self.sup(context["f2"], context_labels)}

@@ -1,16 +1,16 @@
 """Student and teacher episode models and the selection registries
-(port of ``litemkd_tpu/models/student.py:43-68, 88-141, 144-186, 224-328``),
-limited to the entries of the ported slices: every ``ResNetBackbone`` and
-``STRMBackbone`` entry of the JAX registry, and the TRX, e_dist/cos and
-STRM heads. An entry of the JAX registry that the port lacks raises
-``NotImplementedError`` naming its ROADMAP queue.
+(port of ``litemkd_tpu/models/student.py:43-328``): every backbone and head
+of the JAX registries.
 
 A whole batch of episodes goes through one model call: the trunk sees one
 fused (episodes × videos × frames) image batch, context and target clips
 together, and the head takes the episode axis as an explicit batch
-dimension (it replaces the JAX package's ``nn.vmap``). ``Student`` and
-``BatchedStudent`` have the same submodules (``backbone``, ``classifier``),
-so their state dicts are the same: the reference torch key layout.
+dimension (it replaces the JAX package's ``nn.vmap``). A video-axis
+backbone (``*_videoaxis``) attends across the clips of one call, so it
+runs once per episode and side instead, as in the JAX package.
+``Student`` and ``BatchedStudent`` have the same submodules (``backbone``,
+``classifier``), so their state dicts are the same: the reference torch
+key layout.
 """
 from __future__ import annotations
 
@@ -24,12 +24,18 @@ from torch import nn
 from ..config import Config
 from ..ops.dtypes import anchor_dtype
 from .backbones.classifier_net import DeiTTrunk
-from .backbones.resnet import ResNetBackbone
+from .backbones.mobilenet import MobileNetV3Backbone
+from .backbones.resnet import FeatureBackbone, ResNetBackbone
+from .backbones.skeleton import SkeletonEncoder
 from .backbones.strm import STRMBackbone
+from .classifiers.ctx import CTXClassifier, CTXVideoAxis
 from .classifiers.edist import (CosDistance, EDist, EDist1FCSup, EDistFC2,
                                 EDistFC2Sup)
+from .classifiers.otam import OTAMClassifier, TRXMulti
 from .classifiers.strm import STRM1FCSup, STRMClassifier, STRMClassifierSup
-from .classifiers.trx import TRX, TRX_2fcsup, TRX_2fcsup_fixed
+from .classifiers.trx import (TRX, TRX_1fc_sup, TRX_2fc, TRX_2fcsup,
+                              TRX_2fcsup_2, TRX_2fcsup_fixed, TRX_sup)
+from .teacher.fusion import SelfAttention
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "resnet18_student": partial(ResNetBackbone, depth=18, num_fc=1,
@@ -53,13 +59,32 @@ BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "strmbackbone": partial(STRMBackbone, depth=18, num_fc=1),
     "strm50_student": partial(STRMBackbone, depth=50, num_fc=1),
     "cnn_strm": partial(STRMBackbone, depth=50, num_fc=1),
+    "mobilenetv3_large": partial(MobileNetV3Backbone, variant="large", num_fc=1),
+    "mobilenetv3_large_2fc": partial(MobileNetV3Backbone, variant="large",
+                                     num_fc=2),
+    "mobilenetv3_small": partial(MobileNetV3Backbone, variant="small", num_fc=1),
+    "mobilenetv3_small_2fc": partial(MobileNetV3Backbone, variant="small",
+                                     num_fc=2),
+    "feature": partial(FeatureBackbone),
+    # the *_videoaxis entries reproduce the released S3DEncoder's
+    # no-batch_first video-axis attention (model.py:2807)
+    "s3d": partial(SkeletonEncoder, video_axis=False),
+    "skeleton": partial(SkeletonEncoder, video_axis=False),
+    "s3d_videoaxis": partial(SkeletonEncoder, video_axis=True),
+    "skeleton_videoaxis": partial(SkeletonEncoder, video_axis=True),
 }
 
 CLASSIFIERS: Dict[str, Any] = {
     "TRX": TRX,
     "TRX_fixed": TRX,
+    "TRX_sup": TRX_sup,
+    "TRX_sup_fixed": TRX_sup,
+    "TRX_2fc": TRX_2fc,
     "TRX_2fcsup": TRX_2fcsup,
     "TRX_2fcsup_fixed": TRX_2fcsup_fixed,
+    "TRX_1fc_sup": TRX_1fc_sup,
+    "TRX_2fcsup_2": TRX_2fcsup_2,
+    "TRX_2fcsup_2_fixed": TRX_2fcsup_fixed,
     "cos": CosDistance,
     "e_dist": EDist,
     "e_dist_fc2": EDistFC2,
@@ -70,29 +95,13 @@ CLASSIFIERS: Dict[str, Any] = {
     "strm_res18": STRMClassifier,
     "strm_res18_sup": STRMClassifierSup,
     "strm_1fc_sup": STRM1FCSup,
+    "OTAM": OTAMClassifier,
+    "CNN_OTAM": OTAMClassifier,
+    "TRX_multi": TRXMulti,
+    "TRM": TRXMulti,
+    "CTX": CTXClassifier,
+    "CTX_videoaxis": CTXVideoAxis,
 }
-
-# entries of the JAX registries that the port does not have yet, by the
-# ROADMAP queue that holds them
-UNPORTED: Dict[str, str] = {
-    **{n: "queue 5 (expert_skeleton_trx)" for n in (
-        "s3d", "skeleton", "s3d_videoaxis", "skeleton_videoaxis")},
-    **{n: "queue 6" for n in (
-        "mobilenetv3_large", "mobilenetv3_large_2fc", "mobilenetv3_small",
-        "mobilenetv3_small_2fc", "feature", "TRX_sup", "TRX_sup_fixed",
-        "TRX_2fc", "TRX_1fc_sup", "TRX_2fcsup_2", "TRX_2fcsup_2_fixed",
-        "OTAM", "CNN_OTAM", "TRX_multi", "TRM", "CTX", "CTX_videoaxis")},
-}
-
-
-def _entry(registry: Dict[str, Any], name: str):
-    """``registry[name]``; an entry the port lacks raises
-    ``NotImplementedError`` naming its queue."""
-    if name not in registry and name in UNPORTED:
-        raise NotImplementedError(f"{name!r} is not ported yet (ROADMAP "
-                                  f"{UNPORTED[name]})")
-    return registry[name]
-
 
 # teacher selection aliases (reference model_select.py:220-233)
 TEACHER_ALIASES: Dict[str, str] = {
@@ -110,10 +119,9 @@ TEACHER_ALIASES: Dict[str, str] = {
 
 def resolve_teacher(name: str) -> str:
     """Map a reference teacher-selection name (or a classifier name) to its
-    classifier key; an unknown name raises ``ValueError`` (a head of the
-    JAX registry that the port lacks raises in :func:`make_classifier`)."""
+    classifier key; an unknown name raises ``ValueError``."""
     resolved = TEACHER_ALIASES.get(name, name)
-    if resolved not in CLASSIFIERS and resolved not in UNPORTED:
+    if resolved not in CLASSIFIERS:
         raise ValueError(
             f"unknown teacher head {name!r}; expected one of "
             f"{sorted(TEACHER_ALIASES)} or a classifier name "
@@ -129,32 +137,45 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 def make_classifier(name: str, cfg: Config) -> nn.Module:
     """The head ``name`` with the JAX package's keyword arguments
     (``litemkd_tpu/models/student.py:144-172``): the episode geometry, and
-    for the TRX and STRM heads the widths, tuple size and dropout. Those
-    heads run at the fp32 anchor whatever the trunk dtype: attention,
-    softmax and distances are precision-sensitive."""
-    cls = _entry(CLASSIFIERS, name)
+    for the TRX, TRX_multi, STRM and CTX heads the widths and dropout, the
+    tuple size (``temp_set[0]``; all of ``temp_set`` for TRX_multi; single
+    frames for CTX). Those heads run at the fp32 anchor whatever the trunk
+    dtype: attention, softmax and distances are precision-sensitive."""
+    cls = CLASSIFIERS[name]
     kw = dict(way=cfg.episode.way, shot=cfg.episode.shot,
               seq_len=cfg.episode.seq_len)
-    if issubclass(cls, (TRX, STRMClassifier)):
+    if issubclass(cls, (TRX, TRXMulti, STRMClassifier, CTXClassifier)):
         kw.update(in_dim=cfg.model.trans_linear_in_dim,
                   out_dim=cfg.model.trans_linear_out_dim,
-                  set_size=cfg.model.temp_set[0],
                   dropout=cfg.model.trans_dropout,
                   compute_dtype=anchor_dtype(compute_dtype(cfg)))
+    if issubclass(cls, (TRX, STRMClassifier)):
+        kw.update(set_size=cfg.model.temp_set[0])
+    if issubclass(cls, TRXMulti):
+        kw.update(temp_set=cfg.model.temp_set)
     return cls(**kw)
 
 
 def make_backbone(name: str, cfg: Config) -> nn.Module:
-    """The backbone ``name``. A resnet one gets the BN-kernel switch
-    ``pallas_bn``; an STRM one gets none, as in the JAX package, and its
-    enrichment blocks' dropout is ``trans_dropout``."""
+    """The backbone ``name``, with the keyword arguments the JAX package's
+    ``make_backbone`` gives it (``litemkd_tpu/models/student.py:189-206``):
+    a resnet one gets the BN-kernel switch ``pallas_bn``; an STRM one none,
+    and its enrichment blocks' dropout is ``trans_dropout``; a MobileNetV3
+    one none (its trunk has flax BatchNorm in the JAX package); a skeleton
+    one only the width and the frame count of its PE table; ``feature``
+    nothing."""
+    entry = BACKBONES[name]
+    if entry.func is FeatureBackbone:
+        return entry()
+    if entry.func is SkeletonEncoder:
+        return entry(out_dim=cfg.model.trans_linear_in_dim,
+                     seq_len=cfg.episode.seq_len)
     kw = dict(out_dim=cfg.model.trans_linear_in_dim,
               compute_dtype=compute_dtype(cfg), freeze_bn=cfg.model.freeze_bn,
               remat=cfg.model.remat)
-    entry = _entry(BACKBONES, name)
     if entry.func is STRMBackbone:
         kw.update(seq_len=cfg.episode.seq_len, dropout=cfg.model.trans_dropout)
-    else:
+    elif entry.func is ResNetBackbone:
         kw.update(pallas_bn=cfg.model.pallas_bn)
     return entry(**kw)
 
@@ -162,8 +183,11 @@ def make_backbone(name: str, cfg: Config) -> nn.Module:
 def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every weight with torch's default initialisers from
     ``generator``: conv and linear weights and linear biases
-    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity; a DeiT
-    trunk's token parameters N(0, 0.02²)."""
+    U(-1/√fan_in, 1/√fan_in); BatchNorm and LayerNorm at identity;
+    embeddings N(0, 1); an attention's stacked ``in_proj_weight``
+    xavier-uniform with zero ``in_proj`` and ``out_proj`` biases, as
+    ``nn.MultiheadAttention`` does; a DeiT trunk's token parameters
+    N(0, 0.02²)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -173,8 +197,17 @@ def init_student_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(generator=generator)
             elif isinstance(m, DeiTTrunk):
                 m.reset_tokens_(generator)
+        for m in model.modules():
+            if isinstance(m, SelfAttention):
+                three_d, d = m.in_proj_weight.shape
+                bound = math.sqrt(6.0 / (three_d + d))
+                m.in_proj_weight.uniform_(-bound, bound, generator=generator)
+                m.in_proj_bias.zero_()
+                m.out_proj.bias.zero_()
     return model
 
 
@@ -191,9 +224,15 @@ class BatchedStudent(nn.Module):
 
     def features(self, context_clips, target_clips):
         """Context and target clips through one shared trunk batch, split
-        back into (E, S, ...) and (E, Q, ...) features."""
+        back into (E, S, ...) and (E, Q, ...) features. A video-axis
+        backbone attends across the clips of one call, so there context and
+        target of each episode go through it apart, one call each, as the
+        reference's ``S3D.forward`` runs them."""
         e, s = context_clips.shape[0], context_clips.shape[1]
         q = target_clips.shape[1]
+        if getattr(self.backbone, "video_axis", False):
+            return tuple(torch.stack([self.backbone(c[i]) for i in range(e)])
+                         for c in (context_clips, target_clips))
         clips = torch.cat(
             [context_clips.reshape(e * s, *context_clips.shape[2:]),
              target_clips.reshape(e * q, *target_clips.shape[2:])], dim=0)

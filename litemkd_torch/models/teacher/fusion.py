@@ -90,18 +90,34 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    """``depth`` encoder layers under the reference's ``layers`` list."""
+    """``depth`` encoder layers under the reference's ``layers`` list, over
+    (..., N, T, D): attention runs over the T frames of each of the N
+    videos, leading axes folded into N.
+
+    ``video_axis=True`` reproduces the released no-``batch_first`` modules
+    (the S3D skeleton encoder, the teacher-half CTX ``Time_Transformer``;
+    ``litemkd_tpu/models/teacher/fusion.py:109-135``): torch reads an
+    (N, T, D) input as (sequence, batch, feature), so attention runs over
+    the N videos at each frame position, separately for each leading
+    index (an episode's one side)."""
 
     def __init__(self, d_model: int, nhead: int, depth: int,
-                 dropout: float = 0.1, dim_ff: int = 2048):
+                 dropout: float = 0.1, dim_ff: int = 2048,
+                 video_axis: bool = False):
         super().__init__()
+        self.video_axis = video_axis
         self.layers = nn.ModuleList(EncoderLayer(d_model, nhead, dim_ff, dropout)
                                     for _ in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.video_axis:
+            x = x.transpose(-3, -2)
+        shape = x.shape
+        x = x.reshape(-1, *shape[-2:])
         for layer in self.layers:
             x = layer(x)
-        return x
+        x = x.reshape(shape)
+        return x.transpose(-3, -2) if self.video_axis else x
 
 
 class MultiStreamFusion(nn.Module):

@@ -239,19 +239,19 @@ class BatchNorm(nn.BatchNorm2d):
     - Running variance: updated with the **biased** batch variance on both
       paths, as flax and ``PallasBatchNorm`` do (PARITY.md:123-124). torch
       updates with the unbiased one; on the ``F.batch_norm`` path the
-      update is corrected per channel, rv = 0.9·rv_old + (rv_torch −
-      0.9·rv_old)·(n−1)/n with n = N·H·W.
+      update is corrected per channel, rv = (1−m)·rv_old + (rv_torch −
+      (1−m)·rv_old)·(n−1)/n with n = N·H·W and m the momentum.
     - ``recomputing``: set while a rematerialized block runs its forward
       again in the backward pass (``ResNetTrunk(remat=True)``); that run
       computes the same batch statistics and updates nothing, as flax's
       remat discards the mutation of its recompute.
     The parameters and buffers keep ``nn.BatchNorm2d``'s names, so
     reference-layout state dicts load unchanged; ``momentum`` is torch's
-    0.1 (flax 0.9)."""
+    (0.1 for flax's 0.9; the MobileNetV3 trunk's 0.01 for flax's 0.99)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, pallas_bn: bool = False,
-                 freeze_bn: bool = False):
-        super().__init__(channels, eps=eps, momentum=0.1)
+                 freeze_bn: bool = False, momentum: float = 0.1):
+        super().__init__(channels, eps=eps, momentum=momentum)
         self.pallas_bn = pallas_bn
         self.freeze_bn = freeze_bn
         self.recomputing = False

@@ -18,7 +18,7 @@ from torch import nn
 
 from .dtypes import anchor_dtype
 from .positional import SinusoidalPE
-from .tct_attention import tct_attention
+from .tct_attention import tct_attention, tct_attention_plain
 from .tuples import gather_tuples, tuple_indices
 
 
@@ -78,8 +78,17 @@ class TemporalCrossTransformer(nn.Module):
         return (q_k.contiguous(), q_v.contiguous(), class_k.contiguous(),
                 class_v.contiguous())
 
-    def forward(self, support, support_labels, queries):
-        return tct_attention(*self.project(support, support_labels, queries))
+    def forward(self, support, support_labels, queries,
+                return_prototypes: bool = False):
+        """Logits (E, Q, way); with ``return_prototypes`` also the
+        (E, Q, way, U, dk) prototypes, through the plain version on every
+        device: the JAX package computes them with ``tct_attention_xla``,
+        outside its Pallas kernel (``litemkd_tpu/ops/tct.py:110-115``),
+        and the kernel writes no prototypes."""
+        ops = self.project(support, support_labels, queries)
+        if return_prototypes:
+            return tct_attention_plain(*ops, return_proto=True)
+        return tct_attention(*ops)
 
 
 class MultiSetTCT(nn.Module):

@@ -15,7 +15,11 @@ port's ``BatchedStudent`` layout:
 
 An STRM student has the reference's CNN_STRM names under ``backbone.``
 (``attn_pat``, ``lift``, ``fr_enrich``, ``fc1``/``fc2``) and
-``classifier.distance.clsW``. An ``ActionRecognitionNet`` goes to
+``classifier.distance.clsW``; a MobileNetV3 student torchvision's names
+under ``backbone.mobile.0.`` and ``fc``/``fc1``/``fc2``; a skeleton
+student the S3D encoder's (``backbone.t_embedding``, ``backbone.t_tr``);
+a multi-set head its sets at ``classifier.transformers.{i}``; a CTX head
+the compiled head's ``classifier.time_trans.*``. An ``ActionRecognitionNet`` goes to
 ``convnet.<seq>.…`` and ``fc``, a ``ViTClassifier`` to timm's names under
 ``convnet.`` and ``fc``.
 
@@ -27,23 +31,29 @@ encoder layer's q, k and v projections stack into the (3d, d)
 ``in_proj_weight`` of torch's ``nn.MultiheadAttention``, and a ViT
 block's into timm's fused ``attn.qkv``.
 
-Importers: a torchvision resnet zoo file (``conv1.weight``,
-``layer1.0.conv1.weight``, …), the reference's pretrain artifact
-(``convnet.N.*``), its run.py expert artifact (``resnet.N.*`` and
-``transformers.{i}.*``; for an STRM backbone its CNN_STRM artifact), a
-``trunk.``-prefixed trunk, a full student (``backbone.*``,
-``classifier.*``) and a timm DeiT file become PARTIAL state dicts, which
-:func:`merge_state_dict` lays over a fresh model's. A file whose trunk has
-another depth than the model's raises, as does a key the model lacks.
+Importers: a torchvision resnet or MobileNetV3 zoo file
+(``conv1.weight``, ``layer1.0.conv1.weight``, …; ``features.N.*``), the
+reference's pretrain artifact (``convnet.N.*``), its run.py expert
+artifact (``resnet.N.*`` and ``transformers.{i}.*``; for an STRM backbone
+its CNN_STRM artifact), its TRM artifact (``backbone.N.*``), its S3D
+skeleton artifact (``encoder.*``) and teacher-half CTX artifact
+(``time_trans.*``), a ``trunk.``-prefixed trunk, a full student
+(``backbone.*``, ``classifier.*``) and a timm DeiT file become PARTIAL
+state dicts, which :func:`merge_state_dict` lays over a fresh model's. A
+file whose trunk has another depth or variant than the model's raises, as
+does a key the model lacks.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..models.backbones.mobilenet import MobileNetV3Backbone, SPECS
+from ..models.backbones.resnet import FeatureBackbone, ResNetBackbone
+from ..models.backbones.skeleton import SkeletonEncoder
 from ..models.backbones.strm import STRMBackbone
 from ..models.student import BACKBONES
 from ..ops.positional import sinusoidal_pe
@@ -186,6 +196,94 @@ def tct_state_dict_from_jax(tct: dict, d_model: int, max_len: int
     return _tensors(sd)
 
 
+def _tct_sets(head: dict, cfg: Config) -> List[dict]:
+    """A JAX head's TCT params, one per set in ``temp_set`` order: the flat
+    TCT, or a ``MultiSetTCT``'s ``tct_{s}``."""
+    t = head["transformers"]
+    if "k_linear" in t:
+        return [t]
+    return [t[f"tct_{s}"] for s in cfg.model.temp_set]
+
+
+def _encoder_params(sd, prefix, encoder):
+    for name, layer in encoder.items():
+        _encoder_layer(sd, f"{prefix}.layers.{name[len('layer'):]}", layer)
+
+
+def classifier_state_dict_from_jax(head: dict, cfg: Config
+                                   ) -> Dict[str, torch.Tensor]:
+    """A JAX head's params → the port's head keys: the TCT at
+    ``transformers.*`` (several sets at ``transformers.{i}.*`` in
+    ``temp_set`` order), a CTX head's ``time_trans.*`` (``positionEncoding``,
+    ``transformer_encoder.layers.{l}`` and, where the head has it, ``f1``),
+    an STRM head's ``distance.clsW``. A parameter-free head (e_dist, cos,
+    OTAM) gives none."""
+    out: Dict[str, torch.Tensor] = {}
+    if "transformers" in head:
+        sets = _tct_sets(head, cfg)
+        for i, tct in enumerate(sets):
+            prefix = "transformers" if len(sets) == 1 else f"transformers.{i}"
+            out.update({f"{prefix}.{k}": v for k, v in tct_state_dict_from_jax(
+                tct, cfg.model.trans_linear_in_dim,
+                int(1.5 * cfg.episode.seq_len)).items()})
+    sd: Dict[str, np.ndarray] = {}
+    if "time_trans" in head:
+        tt = head["time_trans"]
+        pe = tt["pe"]
+        sd["time_trans.positionEncoding.position_embeddings.weight"] = \
+            _np(pe["position_embeddings"])
+        _ln(sd, "time_trans.positionEncoding.LayerNorm", pe["LayerNorm_0"])
+        _encoder_params(sd, "time_trans.transformer_encoder", tt["encoder"])
+        if "f1" in tt:
+            _lin(sd, "time_trans.f1", tt["f1"])
+    if "distance" in head:
+        _lin(sd, "distance.clsW", head["distance"]["clsW"])
+    out.update(_tensors(sd))
+    return out
+
+
+def _mobilenet_trunk(sd, params, stats, variant, prefix):
+    """JAX ``MobileNetV3Trunk`` params/batch_stats → torchvision's
+    ``features`` keys under ``prefix`` (``export_mobilenet_trunk``,
+    ``litemkd_tpu/tools/torch_export.py:86-123``)."""
+    _conv(sd, f"{prefix}0.0.weight", params["stem"])
+    _bn(sd, f"{prefix}0.1", params["stem_bn"], stats["stem_bn"])
+    in_ch = 16
+    for i, (_, e, o, se, _hs, _s) in enumerate(SPECS[variant]):
+        bp, bs = params[f"block{i}"], stats[f"block{i}"]
+        base, j = f"{prefix}{i + 1}.block", 0
+        if e != in_ch:
+            _conv(sd, f"{base}.{j}.0.weight", bp["expand"])
+            _bn(sd, f"{base}.{j}.1", bp["expand_bn"], bs["expand_bn"])
+            j += 1
+        _conv(sd, f"{base}.{j}.0.weight", bp["depthwise"])
+        _bn(sd, f"{base}.{j}.1", bp["depthwise_bn"], bs["depthwise_bn"])
+        j += 1
+        if se:
+            for name in ("fc1", "fc2"):     # Dense (in, out) → 1×1 conv
+                p = bp["se"][name]
+                sd[f"{base}.{j}.{name}.weight"] = \
+                    _np(p["kernel"]).T[:, :, None, None].copy()
+                sd[f"{base}.{j}.{name}.bias"] = _np(p["bias"])
+            j += 1
+        _conv(sd, f"{base}.{j}.0.weight", bp["project"])
+        _bn(sd, f"{base}.{j}.1", bp["project_bn"], bs["project_bn"])
+        in_ch = o
+    head = f"{prefix}{len(SPECS[variant]) + 1}"
+    _conv(sd, f"{head}.0.weight", params["head"])
+    _bn(sd, f"{head}.1", params["head_bn"], stats["head_bn"])
+
+
+def _skeleton_backbone(sd, params, out_dim, seq_len):
+    """JAX ``SkeletonEncoder`` params → the S3D encoder's names, with the
+    PE table of ``max(seq_len, 8)`` rows."""
+    _lin(sd, "t_embedding.0", params["embed_in"])
+    _ln(sd, "t_embedding.1", params["embed_ln"])
+    _lin(sd, "t_embedding.3", params["embed_out"])
+    _encoder_params(sd, "t_tr", params["encoder"])
+    sd["pe.pe"] = sinusoidal_pe(max(seq_len, 8), out_dim, 0.1)[None]
+
+
 def backbone_geometry(name: str) -> Tuple[int, Tuple[str, ...]]:
     """(trunk depth, head names) of the ``BACKBONES`` entry ``name``."""
     if name not in BACKBONES:
@@ -222,47 +320,57 @@ def _strm_backbone(sd, params, seq_len):
 
 def student_state_dict_from_jax(variables: dict, cfg: Config
                                 ) -> Dict[str, torch.Tensor]:
-    """JAX ``BatchedStudent``/``Student`` variables (numpy leaves) of a
-    resnet or STRM backbone with a single-TCT TRX or STRM head, or a
-    parameter-free e_dist/cos head → reference-layout torch state dict."""
+    """JAX ``BatchedStudent``/``Student`` variables (numpy leaves) of any
+    backbone and head of the registries → the reference-layout torch state
+    dict, which is the port's."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    depth, fc_names = backbone_geometry(cfg.model.backbone)
-    bb = params["backbone"]
-    sd = {f"backbone.{k}": v for k, v in backbone_state_dict_from_jax(
-        bb, stats["backbone"], depth, fc_names).items()}
-    if "attn_pat" in bb:
-        strm: Dict[str, np.ndarray] = {}
-        _strm_backbone(strm, bb, cfg.episode.seq_len)
-        sd.update({f"backbone.{k}": v for k, v in _tensors(strm).items()})
-    head = params.get("classifier", {})
-    if "transformers" in head:
-        tct = head["transformers"]
-        if "k_linear" not in tct:
-            raise ValueError("multi-set TCT heads are not ported")
-        sd.update({f"classifier.transformers.{k}": v for k, v in
-                   tct_state_dict_from_jax(
-                       tct, cfg.model.trans_linear_in_dim,
-                       int(1.5 * cfg.episode.seq_len)).items()})
-    if "distance" in head:
-        dist: Dict[str, np.ndarray] = {}
-        _lin(dist, "classifier.distance.clsW", head["distance"]["clsW"])
-        sd.update(_tensors(dist))
-    return sd
+    name = cfg.model.backbone
+    func = BACKBONES[name].func
+    bb = params.get("backbone", {})
+    out: Dict[str, torch.Tensor] = {}
+    sd: Dict[str, np.ndarray] = {}
+    if func is MobileNetV3Backbone:
+        _mobilenet_trunk(sd, bb["trunk"], stats["backbone"]["trunk"],
+                         BACKBONES[name].keywords["variant"], "mobile.0.")
+        two = BACKBONES[name].keywords["num_fc"] == 2
+        for src, dst in (("fc1", "fc1"), ("fc2", "fc2")) if two else (("fc1", "fc"),):
+            _lin(sd, dst, bb[src])
+    elif func is SkeletonEncoder:
+        _skeleton_backbone(sd, bb, cfg.model.trans_linear_in_dim,
+                           cfg.episode.seq_len)
+    elif func is not FeatureBackbone:
+        depth, fc_names = backbone_geometry(name)
+        out.update({f"backbone.{k}": v for k, v in backbone_state_dict_from_jax(
+            bb, stats["backbone"], depth, fc_names).items()})
+        if "attn_pat" in bb:
+            _strm_backbone(sd, bb, cfg.episode.seq_len)
+    out.update({f"backbone.{k}": v for k, v in _tensors(sd).items()})
+    out.update({f"classifier.{k}": v for k, v in classifier_state_dict_from_jax(
+        params.get("classifier", {}), cfg).items()})
+    return out
 
 
 def teacher_state_dict_from_jax(teacher_vars: dict, cfg: Config
                                 ) -> Dict[str, torch.Tensor]:
-    """JAX ``Teacher``/``BatchedTeacher`` variables (a single-TCT head such
-    as TRX_2fcsup_fixed) → the released teacher layout
-    (``bracnch.transformers.0.*``, the keys ``export_teacher_checkpoint``
-    writes)."""
-    tct = teacher_vars["params"]["classifier"]["transformers"]
-    if "k_linear" not in tct:
-        raise ValueError("multi-set TCT teacher heads are not ported")
-    return {f"bracnch.transformers.0.{k}": v for k, v in
-            tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
-                                    int(1.5 * cfg.episode.seq_len)).items()}
+    """JAX ``Teacher``/``BatchedTeacher`` variables → the released teacher
+    layout, the keys ``export_teacher_checkpoint`` writes: the head's TCT
+    sets at ``bracnch.transformers.{i}.*`` in ``temp_set`` order; nothing
+    for a parameter-free head (OTAM, e_dist, cos). That layout holds TCT
+    sets only, so a CTX teacher raises (the JAX exporter drops its
+    ``time_trans``)."""
+    head = teacher_vars["params"].get("classifier", {})
+    if "time_trans" in head:
+        raise ValueError("the released teacher layout holds TCT sets only; "
+                         "a CTX teacher's time_trans has no place in it")
+    if "transformers" not in head:
+        return {}
+    out: Dict[str, torch.Tensor] = {}
+    for i, tct in enumerate(_tct_sets(head, cfg)):
+        out.update({f"bracnch.transformers.{i}.{k}": v for k, v in
+                    tct_state_dict_from_jax(tct, cfg.model.trans_linear_in_dim,
+                                            int(1.5 * cfg.episode.seq_len)).items()})
+    return out
 
 
 def _tct_prefix(sd: Dict[str, torch.Tensor]) -> Optional[str]:
@@ -287,15 +395,33 @@ def teacher_state_dict_from_reference(sd: Dict[str, torch.Tensor],
                                       ) -> Dict[str, torch.Tensor]:
     """A reference teacher state dict (any prefix ending in a TCT, such as
     ``bracnch.transformers.0``) → the state dict of the port's
-    ``BatchedTeacher`` ``teacher``. Keys the file lacks (the unused
-    ``norm_v``, the ``pe.pe`` table) keep the module's values."""
+    ``BatchedTeacher`` ``teacher``. A multi-set head takes set i from
+    ``<prefix>.{i}`` (``bracnch.transformers.{i}``), and the file must
+    hold every set. Keys the file lacks (the unused ``norm_v``, the
+    ``pe.pe`` table) keep the module's values; a parameter-free head
+    (OTAM, e_dist, cos) has nothing to load."""
+    out = dict(teacher.state_dict())
+    head = "classifier.transformers."
+    if not any(k.startswith(head) for k in out):
+        return out
     prefix = _tct_prefix(sd)
     if prefix is None:
         raise KeyError("no TRX k_linear weights in the teacher state dict")
-    out = dict(teacher.state_dict())
+    n_sets = sum(k.startswith(head) and k.endswith(".k_linear.weight") and
+                 k.count(".") == 4 for k in out)
+    if n_sets:      # a multi-set head: classifier.transformers.{i}.*
+        base = prefix.rsplit(".", 1)[0]
+        missing = [i for i in range(n_sets)
+                   if f"{base}.{i}.k_linear.weight" not in sd]
+        if missing:
+            raise KeyError(f"the teacher state dict lacks TCT sets {missing} "
+                           f"under {base!r}")
     for k in out:
-        src = f"{prefix}.{k[len('classifier.transformers.'):]}"
-        if k.startswith("classifier.transformers.") and src in sd:
+        if not k.startswith(head):
+            continue
+        rest = k[len(head):]
+        src = f"{base}.{rest}" if n_sets else f"{prefix}.{rest}"
+        if src in sd:
             out[k] = sd[src]
     return out
 
@@ -320,9 +446,7 @@ def _stream_fusion(sd, prefix, p):
             _np(pe["position_embeddings"])
         _ln(sd, f"{prefix}.positionEncoding{i}.LayerNorm", pe["LayerNorm_0"])
         i += 1
-    for name, layer in p["encoder"].items():
-        _encoder_layer(sd, f"{prefix}.transformer_encoder.layers."
-                       f"{name[len('layer'):]}", layer)
+    _encoder_params(sd, f"{prefix}.transformer_encoder", p["encoder"])
     _lin(sd, f"{prefix}.f1", p["fuse_proj"])
 
 
@@ -504,34 +628,105 @@ def load_pretrain_init(path: str, arch: str) -> Dict[str, torch.Tensor]:
     return {f"convnet.{k}": v for k, v in trunk.items()}
 
 
-def _tct_import(sd: Dict[str, torch.Tensor], prefix: str
+_TCT_KEYS = ("k_linear.weight", "k_linear.bias", "v_linear.weight",
+             "v_linear.bias", "norm_k.weight", "norm_k.bias")
+_ENCODER_LAYER_KEYS = tuple(f"{m}.{w}" for m in (
+    "self_attn.out_proj", "linear1", "linear2", "norm1", "norm2")
+    for w in ("weight", "bias")) + ("self_attn.in_proj_weight",
+                                    "self_attn.in_proj_bias")
+
+
+def _tct_import(sd: Dict[str, torch.Tensor], prefix: str,
+                dst: str = "classifier.transformers"
                 ) -> Dict[str, torch.Tensor]:
     """The TCT weights the JAX importer reads (``k_linear``, ``v_linear``,
-    ``norm_k``) from under ``prefix``, as the port's
-    ``classifier.transformers`` keys."""
-    return {f"classifier.transformers.{k}": sd[f"{prefix}.{k}"]
-            for k in ("k_linear.weight", "k_linear.bias", "v_linear.weight",
-                      "v_linear.bias", "norm_k.weight", "norm_k.bias")}
+    ``norm_k``) from under ``prefix``, under ``dst``."""
+    return {f"{dst}.{k}": sd[f"{prefix}.{k}"] for k in _TCT_KEYS}
 
 
-def _expert_import(sd, depth, path, backbone):
-    """A run.py expert artifact (``litemkd_tpu/tools/torch_import.py:546-562``):
-    its trunk under ``resnet.`` and its one TCT (``transformers.0``)."""
-    out = {f"backbone.resnet.{k}": v for k, v in
-           _trunk_import(sd, "resnet.", depth, path, f"backbone {backbone!r}").items()}
-    if "transformers.1.k_linear.weight" in sd:
-        raise NotImplementedError(
-            f"{path} holds several TCT sets; multi-set heads are not ported "
-            "yet (ROADMAP queue 6)")
-    if "transformers.0.k_linear.weight" in sd:
-        out.update(_tct_import(sd, "transformers.0"))
+def _tct_stack_import(sd: Dict[str, torch.Tensor], cfg: Config, path: str,
+                      prefix: str = "transformers") -> Dict[str, torch.Tensor]:
+    """A reference TCT ModuleList under ``prefix``
+    (``litemkd_tpu/tools/torch_import.py:523-543``): one set goes to
+    ``classifier.transformers``, several to ``classifier.transformers.{i}``
+    (a multi-set head), and then there must be one per ``temp_set`` entry.
+    Empty where the file holds no set."""
+    n_sets = 0
+    while f"{prefix}.{n_sets}.k_linear.weight" in sd:
+        n_sets += 1
+    if n_sets == 1:
+        return _tct_import(sd, f"{prefix}.0")
+    if n_sets and n_sets != len(cfg.model.temp_set):
+        raise ValueError(f"{path} holds {n_sets} TCT sets but temp_set="
+                         f"{cfg.model.temp_set}; pass --temp_set matching the "
+                         "trained model")
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_sets):
+        out.update(_tct_import(sd, f"{prefix}.{i}",
+                               f"classifier.transformers.{i}"))
     return out
 
 
-def _cnn_strm_import(sd, depth, path, backbone, out_dim):
+def _encoder_import(sd, src, dst) -> Dict[str, torch.Tensor]:
+    """The layers ``src.layers.{l}`` of a torch ``TransformerEncoder``
+    under ``dst``."""
+    out: Dict[str, torch.Tensor] = {}
+    n = 0
+    while f"{src}.layers.{n}.linear1.weight" in sd:
+        out.update({f"{dst}.layers.{n}.{k}": sd[f"{src}.layers.{n}.{k}"]
+                    for k in _ENCODER_LAYER_KEYS})
+        n += 1
+    if n == 0:
+        raise ValueError(f"no encoder layers under {src!r}")
+    return out
+
+
+def _resnet_depth(backbone: str, path: str, what: str) -> int:
+    if BACKBONES[backbone].func not in (ResNetBackbone, STRMBackbone):
+        raise ValueError(f"{path} is {what}, which cannot warm-start "
+                         f"backbone {backbone!r}")
+    return backbone_geometry(backbone)[0]
+
+
+def _mobilenet_variant(trunk: Dict[str, torch.Tensor], prefix: str) -> str:
+    """large (16 feature entries) or small, from a torchvision
+    ``features`` layout under ``prefix``."""
+    return "large" if f"{prefix}16.0.weight" in trunk else "small"
+
+
+def _mobilenet_import(sd, prefix, backbone, path, what):
+    """The MobileNetV3 trunk of ``sd`` under ``prefix`` (torchvision's
+    ``features`` layout) as ``backbone.mobile.0.*``; a file of the other
+    variant, or a backbone that is not a MobileNetV3, raises
+    (``litemkd_tpu/tools/torch_import.py:496-505``)."""
+    entry = BACKBONES[backbone]
+    if entry.func is not MobileNetV3Backbone:
+        raise ValueError(f"mobilenet {what} {path} cannot warm-start backbone "
+                         f"{backbone!r}")
+    have, want = _mobilenet_variant(sd, prefix), entry.keywords["variant"]
+    if have != want:
+        raise ValueError(f"{path} is mobilenet_v3_{have} but backbone "
+                         f"{backbone!r} needs mobilenet_v3_{want}")
+    return {f"backbone.mobile.0.{k[len(prefix):]}": v for k, v in sd.items()
+            if k.startswith(prefix) and not k.endswith("num_batches_tracked")}
+
+
+def _expert_import(sd, cfg, path, prefix="resnet."):
+    """A run.py expert artifact (``litemkd_tpu/tools/torch_import.py:546-562``;
+    with ``prefix="backbone."`` a TRM artifact's GAP trunk): its trunk and
+    its TCT sets (``transformers.{i}``)."""
+    backbone = cfg.model.backbone
+    depth = _resnet_depth(backbone, path, "a resnet expert artifact")
+    out = {f"backbone.resnet.{k}": v for k, v in
+           _trunk_import(sd, prefix, depth, path, f"backbone {backbone!r}").items()}
+    out.update(_tct_stack_import(sd, cfg, path))
+    return out
+
+
+def _cnn_strm_import(sd, cfg, path):
     """A CNN_STRM expert artifact (``litemkd_tpu/tools/torch_import.py:
     854-899``): its trunk (``resnet.``), ``attn_pat`` (``value_conv``, the
-    released name), ``fr_enrich`` and one TCT (``transformers.0``), with
+    released name), ``fr_enrich`` and its TCT (``transformers.0``), with
     ``lift`` set to the identity (the reference's trunk width already is
     ``out_dim``). The released file has no ``distance.clsW`` (the
     reference keeps those heads in a plain Python list), so it keeps the
@@ -539,12 +734,7 @@ def _cnn_strm_import(sd, depth, path, backbone, out_dim):
     if "transformers.0.k_linear.weight" not in sd:
         raise ValueError(f"{path} holds no transformers.* TCT keys: not a "
                          "CNN_STRM expert artifact")
-    if "transformers.1.k_linear.weight" in sd:
-        raise NotImplementedError(
-            f"{path} holds several TCT sets; multi-set heads are not ported "
-            "yet (ROADMAP queue 6)")
-    out = {f"backbone.resnet.{k}": v for k, v in _trunk_import(
-        sd, "resnet.", depth, path, f"backbone {backbone!r}").items()}
+    out = _expert_import(sd, cfg, path)
     keys = [f"attn_pat.{m}.{w}" for m in (
         "query_proj", "key_proj", "value_conv", "Bot_MLP.inp_fc",
         "Bot_MLP.hid_fc", "Bot_MLP.out_fc") for w in ("weight", "bias")]
@@ -553,45 +743,85 @@ def _cnn_strm_import(sd, depth, path, backbone, out_dim):
         "Tok_MLP.inp_fc", "Tok_MLP.out_fc", "Bot_MLP.inp_fc", "Bot_MLP.out_fc")
         for w in ("weight", "bias")]
     out.update({f"backbone.{k}": sd[k] for k in keys})
+    out_dim = cfg.model.trans_linear_in_dim
     out["backbone.lift.weight"] = torch.eye(out_dim)
     out["backbone.lift.bias"] = torch.zeros(out_dim)
-    out.update(_tct_import(sd, "transformers.0"))
+    return out
+
+
+def _teacher_ctx_import(sd, cfg, path):
+    """The teacher-half CTX artifact (``litemkd_tpu/tools/torch_import.py:
+    902-938``, ``model.py:2938-3014``): its resnet trunk (``resnet.``), the
+    ``time_trans`` PE and encoder layers (its ``f1`` is dead there and is
+    left out) and its frame-level TCT (``transformers.``), for the
+    ``CTX_videoaxis`` head."""
+    backbone = cfg.model.backbone
+    depth = _resnet_depth(backbone, path, "a teacher CTX artifact")
+    out = {f"backbone.resnet.{k}": v for k, v in
+           _trunk_import(sd, "resnet.", depth, path, f"backbone {backbone!r}").items()}
+    pe = "time_trans.positionEncoding"
+    for k in ("position_embeddings.weight", "LayerNorm.weight", "LayerNorm.bias"):
+        out[f"classifier.{pe}.{k}"] = sd[f"{pe}.{k}"]
+    out.update(_encoder_import(sd, "time_trans.transformer_encoder",
+                               "classifier.time_trans.transformer_encoder"))
+    out.update(_tct_import(sd, "transformers"))
+    return out
+
+
+def _skeleton_import(sd, cfg, path):
+    """An S3D skeleton expert artifact (``litemkd_tpu/tools/torch_import.py:
+    941-963``): the encoder's ``t_embedding`` (0, 1, 3) and ``t_tr``
+    layers under ``backbone.``, and its TCT sets."""
+    tct = _tct_stack_import(sd, cfg, path)
+    if not tct:
+        raise ValueError(f"{path} holds no transformers.* TCT keys: not an "
+                         "S3D skeleton expert artifact")
+    out = {f"backbone.t_embedding.{i}.{w}": sd[f"encoder.t_embedding.{i}.{w}"]
+           for i in (0, 1, 3) for w in ("weight", "bias")}
+    out.update(_encoder_import(sd, "encoder.t_tr", "backbone.t_tr"))
+    out.update(tct)
     return out
 
 
 def load_student_checkpoint(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
     """A ``.pt`` file as a (maybe PARTIAL) ``BatchedStudent`` state dict, by
-    the routes of ``litemkd_tpu/tools/torch_import.py:565-630`` that this
-    port has: a torchvision resnet zoo file (the trunk only, the reference's
-    ``pretrained=True``), a run.py expert artifact (``resnet.N.*`` and
-    ``transformers.0``; for an STRM backbone the CNN_STRM artifact), or a
-    full reference student (``backbone.*``, ``classifier.*``, with
-    DataParallel ``module.`` segments dropped). A trunk of another depth
-    than the configured backbone's raises; CTX, S3D and mobilenet artifacts
-    are not ported yet."""
+    the routes of ``litemkd_tpu/tools/torch_import.py:565-630``: a
+    torchvision resnet or MobileNetV3 zoo file (the trunk only, the
+    reference's ``pretrained=True``), a teacher-half CTX artifact
+    (``time_trans.*``), an S3D skeleton artifact (``encoder.*``), a run.py
+    expert artifact (``resnet.N.*`` and ``transformers.{i}``; for an STRM
+    backbone the CNN_STRM artifact), a TRM artifact (``backbone.N.*`` and
+    ``transformers.{i}``), or a full reference student (``backbone.*``,
+    ``classifier.*``, with DataParallel ``module.`` segments dropped). A
+    trunk of another depth or MobileNetV3 variant than the configured
+    backbone's raises."""
     sd = load_reference_state_dict(path)
     backbone = cfg.model.backbone
-    depth, _ = backbone_geometry(backbone)
     if _is_torchvision_resnet(sd):
+        depth = _resnet_depth(backbone, path, "a resnet zoo checkpoint")
         return {f"backbone.resnet.{k}": v for k, v in _trunk_import(
             sd, "", depth, path, f"backbone {backbone!r}").items()}
-    for key, kind, queue in (
-            ("time_trans.positionEncoding.position_embeddings.weight", "CTX",
-             "queue 6"),
-            ("encoder.t_embedding.0.weight", "S3D skeleton",
-             "queue 5 (expert_skeleton_trx)"),
-            ("features.0.0.weight", "mobilenet", "queue 6")):
-        if key in sd:
-            raise NotImplementedError(f"{path} is a {kind} artifact; its "
-                                      f"importer is not ported yet (ROADMAP "
-                                      f"{queue})")
+    if "features.0.0.weight" in sd and "features.1.block.0.0.weight" in sd:
+        return _mobilenet_import(sd, "features.", backbone, path,
+                                 "zoo checkpoint")
+    if "time_trans.positionEncoding.position_embeddings.weight" in sd:
+        return _teacher_ctx_import(sd, cfg, path)
+    if "encoder.t_embedding.0.weight" in sd:
+        return _skeleton_import(sd, cfg, path)
     if not any(k.startswith("backbone.") for k in sd):
         if any(k.startswith("resnet.") for k in sd):
             if BACKBONES[backbone].func is STRMBackbone:
-                return _cnn_strm_import(sd, depth, path, backbone,
-                                        cfg.model.trans_linear_in_dim)
-            return _expert_import(sd, depth, path, backbone)
+                return _cnn_strm_import(sd, cfg, path)
+            return _expert_import(sd, cfg, path)
         raise ValueError(f"{path} is not a student, expert or torchvision "
-                         "resnet checkpoint")
-    _trunk_import(sd, "backbone.resnet.", depth, path, f"backbone {backbone!r}")
+                         "zoo checkpoint")
+    if "backbone.0.weight" in sd and "transformers.0.k_linear.weight" in sd:
+        return _expert_import(sd, cfg, path, prefix="backbone.")
+    func = BACKBONES[backbone].func
+    if func is MobileNetV3Backbone:
+        _mobilenet_import(sd, "backbone.mobile.0.", backbone, path,
+                          "student checkpoint")
+    elif func in (ResNetBackbone, STRMBackbone):
+        _trunk_import(sd, "backbone.resnet.", backbone_geometry(backbone)[0],
+                      path, f"backbone {backbone!r}")
     return sd

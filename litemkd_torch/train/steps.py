@@ -84,15 +84,19 @@ def create_train_state(cfg: Config, device, *,
     or ``teacher_state_dict`` (strict); without it (batches that carry no
     teacher features) there is none, as the JAX package's
     ``create_train_state`` leaves ``t_vars`` None. The dropout generators
-    live on ``device``, seeded by :func:`dropout_seeds`."""
+    live on ``device``, seeded by :func:`dropout_seeds`. A float64
+    ``compute_dtype`` (the tests' golden runs) holds both models'
+    parameters in float64: torch does not promote a float64 input over
+    float32 weights, as JAX does."""
     device = torch.device(device)
+    dtype = torch.float64 if cfg.model.compute_dtype == "float64" else None
     seed = cfg.train.seed
     model = BatchedStudent(cfg)
     init_student_(model, torch.Generator().manual_seed(seed))
     if student_state_dict is not None:
         model.load_state_dict(merge_state_dict(model.state_dict(),
                                                student_state_dict), strict=True)
-    model.to(device).train()
+    model.to(device, dtype).train()
     model_seed, teacher_seed = dropout_seeds(seed)
     generator = torch.Generator(device=device).manual_seed(model_seed)
     bind_dropout_generator(model, generator)
@@ -103,7 +107,7 @@ def create_train_state(cfg: Config, device, *,
             teacher.load_state_dict(teacher_state_dict, strict=True)
         else:
             init_student_(teacher, torch.Generator().manual_seed(seed + 1))
-        teacher.requires_grad_(False).to(device).train()
+        teacher.requires_grad_(False).to(device, dtype).train()
         teacher_generator = torch.Generator(device=device).manual_seed(teacher_seed)
         bind_dropout_generator(teacher, teacher_generator)
     opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),

@@ -41,6 +41,9 @@ def _inputs(seed, device, e, q, u, dk, w, s):
     (1, 2, 120, 40, 3, 1, None),      # U=120: eight m16 tiles
     (2, 3, 28, 97, 5, 5, None),       # dk % 4 != 0: the 4-byte copy path
     (1, 3, 56, 1152, 5, 5, None),     # U=56 at the flagship dk: 18 score tiles a warp
+    (4, 25, 8, 1152, 5, 5, None),     # CTX's training chunk: single frames, U=8
+    (4, 25, 56, 1152, 5, 5, None),    # TRX_multi/TRM's temp-set-3 chunk: U=56
+    (16, 20, 28, 1152, 5, 5, None),   # the skeleton expert's 16-episode step
     (1, 2, 20, 64, 2, 32, None),      # 640 keys: three score passes, 16-column slices
     (2, 5, 28, 64, 3, 5, 5),          # G=5: 140 rows, two row passes
     (4, 25, 28, 1152, 5, 5, 1),       # the group sizes of the sweep
@@ -494,3 +497,112 @@ def test_vit_forward_on_card_matches_cpu(cuda_device, dtype, tol):
         got = gpu.to(cuda_device).eval()(clips.to(cuda_device)).float().cpu()
     assert got.shape == (2, 7)
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TRX_sup", "TRX_2fc", "TRX_2fcsup_2", "OTAM",
+                                  "TRX_multi", "CTX", "CTX_videoaxis"])
+def test_zoo_head_on_card_matches_cpu(cuda_device, name):
+    """Each head class of the student zoo at tiny width in fp32 on the card
+    against the same weights and features on the CPU: every output within
+    1e-4·max, and the TCT kernel launched as often as the CPU model calls
+    the kernel's wrapper (TRX_sup's prototypes and OTAM take none)."""
+    import copy
+    import dataclasses
+    from litemkd_torch.models import init_student_, make_classifier
+    from litemkd_torch.ops import tct as tct_mod
+    base = preset("tiny")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, compute_dtype="float32", trans_dropout=0.0, temp_set=(2, 3)))
+    ep = cfg.episode
+    cpu = make_classifier(name, cfg).eval()
+    init_student_(cpu, torch.Generator().manual_seed(1))
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(2)
+    streams = ("f1", "f2") if name in ("TRX_2fc", "TRX_2fcsup_2") else (None,)
+
+    def feats(n):
+        out = {k: torch.from_numpy(rng.normal(size=(
+            2, n, ep.seq_len, cfg.model.trans_linear_in_dim)).astype(np.float32))
+            for k in streams}
+        return out[None] if streams == (None,) else out
+
+    def to(x, dev):
+        return {k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+    args = (feats(ep.way * ep.shot),
+            torch.arange(ep.way).repeat_interleave(ep.shot).repeat(2, 1),
+            feats(ep.way * ep.query_per_class))
+    calls = []
+    real = tct_mod.tct_attention
+    try:
+        tct_mod.tct_attention = lambda *a: calls.append(1) or real(*a)
+        with torch.no_grad():
+            want = cpu(*args)
+    finally:
+        tct_mod.tct_attention = real
+    before = ta.tct_attention.launches
+    with torch.no_grad():
+        got = gpu(*(to(a, cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert ta.tct_attention.launches - before == len(calls)
+    want, got = (x if isinstance(x, dict) else {"logits": x} for x in (want, got))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert (got[k].cpu() - want[k]).abs().max().item() <= \
+            1e-4 * want[k].abs().max().item(), k
+
+
+@pytest.mark.cuda
+def test_mobilenet_student_chunk_on_card_matches_cpu(cuda_device):
+    """The tiny fp32 ``student_mobilenet`` (MobileNetV3-large 2-fc,
+    TRX_2fcsup) over a chunk of 2 episodes at 64 px in training mode on the
+    card: both feature streams within 1e-4·max of the CPU's; on the card's
+    own features the TCT kernel within 1e-4·max of its plain version for
+    both branches; a full forward launches the TCT kernel twice (kl, ce)
+    and no BN kernel. The logits are not held against the CPU's: at this
+    width the TCT's LayerNorm over near-equal keys amplifies fp32 rounding
+    of the features (the CPU's own fp32 logits differ from its float64 ones
+    by up to 30% of their largest value)."""
+    import copy
+    import dataclasses
+    from litemkd_torch.models import BatchedStudent, init_student_
+    from litemkd_torch.ops import batch_norm as bn
+    base = preset("tiny")
+    mob = preset("student_mobilenet")
+    cfg = base.replace(
+        episode=dataclasses.replace(base.episode, img_size=64),
+        model=dataclasses.replace(base.model, compute_dtype="float32",
+                                  backbone=mob.model.backbone,
+                                  classifier=mob.model.classifier))
+    ep = cfg.episode
+    cpu = BatchedStudent(cfg).train()
+    init_student_(cpu, torch.Generator().manual_seed(3))
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(4)
+    shape = (ep.seq_len, ep.img_size, ep.img_size, 3)
+    sup = torch.from_numpy(rng.integers(0, 256, (2, ep.way * ep.shot, *shape),
+                                        dtype=np.uint8))
+    qry = torch.from_numpy(rng.integers(0, 256, (2, ep.way * ep.query_per_class,
+                                                 *shape), dtype=np.uint8))
+    lab = torch.arange(ep.way).repeat_interleave(ep.shot).repeat(2, 1)
+    dev = [x.to(cuda_device) for x in (sup, lab, qry)]
+    with torch.no_grad():
+        want = cpu.features(sup, qry)
+        got = gpu.features(dev[0], dev[2])
+        for g, w in zip(got, want):
+            for s in ("f1", "f2"):
+                assert (g[s].cpu() - w[s]).abs().max().item() <= \
+                    1e-4 * w[s].abs().max().item(), s
+        tct = gpu.classifier.transformers
+        for s in ("f1", "f2"):
+            ops = tct.project(got[0][s], dev[1], got[1][s])
+            k, p = ta.tct_attention(*ops), ta.tct_attention_plain(*ops)
+            assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item(), s
+        before = (ta.tct_attention.launches, bn.bn_sums.launches)
+        out = gpu(*dev)["logits"]
+    torch.cuda.synchronize()
+    assert (ta.tct_attention.launches - before[0],
+            bn.bn_sums.launches - before[1]) == (2, 0)
+    assert out.keys() == {"kl", "ce", "sup"}
+    assert all(torch.isfinite(v).all() for v in out.values())

@@ -492,10 +492,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 6"):
         tt_cli.main(["--preset", "tiny", "--fusion", "tsf", "--device", "cpu",
                      "--debug"])
-    # an entry of the JAX registries that the port lacks names its queue
-    # (not a KeyError)
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        make_backbone("s3d", _cfg(torch_config.preset))
+    # the skeleton entries of the JAX registry (queue 5) now build
+    enc = make_backbone("s3d", _cfg(torch_config.preset))
+    assert type(enc).__name__ == "SkeletonEncoder" and not enc.t_tr.video_axis
     with pytest.raises(NotImplementedError, match="queue 6"):
         extract_cli.main(["--mode_extract", "mfm", "--fusion", "tsf",
                           "--preset", "tiny", "--feature_root", "x",
