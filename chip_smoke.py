@@ -96,7 +96,24 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    kernel at CTX's shape (E 4, Q 25, U 8), checks it at the zoo's other
    full-width shapes (TRX_multi/TRM's U 56 chunk, the skeleton expert's
    16-episode step) at every group size that fits, and its tiny checks a
-   ``student_mobilenet`` train step card-vs-CPU.
+   ``student_mobilenet`` train step card-vs-CPU;
+11. the fusion-teacher zoo on phase 6's tree: every fusion kind (the 5
+   bespoke ones, the 31 composer presets and one ``otam:`` kind) at tiny
+   width in fp32 on the card against the CPU (logits, and one SGD step
+   for five kinds), with the TCT launches each module calls; TSF at the
+   full width of ``preset("mfm_teacher")`` through
+   ``litemkd_torch.cli.train_teacher --fusion tsf --score_weights 1 0.5
+   0.5 --branch_ckpt rgb=<phase 8's expert_trx run>`` (2 steps of 16
+   episodes, an 8-episode eval; the graft checked first) and its
+   checkpoint through ``--test_only``; ``ThreeTRXCombination`` through
+   ``cli.train_teacher`` and ``cli.extract`` of its run directory;
+   ``cli.extract --fusion TwoCombinationTemTroShiftTRX_faithful`` with
+   ``--extract_side support`` and ``query``, whose trees must differ; each
+   with the launch counts derived from the modules read around it; then
+   the device-resident training step and eval chunk of eight kinds that
+   cover every branch kind, combiner, post-processor and head (FourStrm
+   on 4 modalities), with peak memory and the idle share. Phase 3 adds
+   the TCT kernel at the ctx head's 16-episode shape (E 16, Q 25, U 8).
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -148,6 +165,8 @@ TRAIN = dict(e=4, q=25, u=28, dk=1152, w=5, s=5)  # training micro-batch of 4
 MFM_TRAIN = dict(e=16, q=25, u=28, dk=1152, w=5, s=5)  # MFM step: 16 episodes at once
 EXPERT_TRAIN = dict(e=4, q=20, u=28, dk=1152, w=5, s=5)  # expert_trx chunk: qpc 4
 CTX_TRAIN = dict(e=4, q=25, u=8, dk=1152, w=5, s=5)  # CTX: single frames, U = 8
+# the composer's frame-level ctx head (TwoCTXShuffleTime*): a 16-episode step
+CTX_STEP = dict(e=16, q=25, u=8, dk=1152, w=5, s=5)
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
           dict(e=3, q=11, u=28, dk=100, w=7, s=3),
           dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
@@ -198,22 +217,29 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, attempts=3):
     """Device time of one ``fn()``: the summed durations of the device
     activities (kernels, copies) that torch.profiler records over ``iters``
     calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out the gaps
-    in which the card waits for the host to launch."""
+    in which the card waits for the host to launch. On the card's machine
+    the profiler has returned no device activity for a window of ~2 ms
+    that others before it recorded, so an empty window is profiled again,
+    up to ``attempts`` times, before this raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / iters
+        log(f"[profile] torch.profiler recorded no device activity (attempt "
+            f"{attempt} of {attempts})")
+    raise RuntimeError("torch.profiler recorded no device activity")
 
 
 def tct_inputs(shape, seed):
@@ -309,7 +335,8 @@ def tct_phase():
     for name, shape, seed in (("eval", EVAL, 0), ("train", TRAIN, 1),
                               ("mfm_train", MFM_TRAIN, 3),
                               ("expert_train", EXPERT_TRAIN, 4),
-                              ("ctx_train", CTX_TRAIN, 7)):
+                              ("ctx_train", CTX_TRAIN, 7),
+                              ("ctx_step", CTX_STEP, 10)):
         args, err = check_kernel(shape, seed)
         times[name] = time_kernel(shape, args)
         auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
@@ -852,8 +879,9 @@ def profile_step(fn, label):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     union of its kernel and copy intervals), the span from the first device
     start to the last device end, the idle share of that span, and the
-    kernels that take the most device time. Prints "not measured" where the
-    profiler records no device activity."""
+    kernels that take the most device time; returns the idle share. Prints
+    "not measured" (and returns None) where the profiler records no device
+    activity."""
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -881,6 +909,7 @@ def profile_step(fn, label):
         f"{span / 1e3:.3f} ms span (idle share {1 - busy / span:.3f}); "
         f"{len(dev)} device events; top: "
         + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
+    return 1 - busy / span
 
 
 def train_device_rate(card):
@@ -2154,6 +2183,324 @@ def student_zoo_path(label, run_root):
     return {k: counts[k] + skel[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# The fusion-teacher zoo
+# ---------------------------------------------------------------------------
+
+FUSION_BESPOKE = ("tsf", "dga", "dga2", "two_road", "two_road_videoaxis")
+FUSION_OTAM = "otam:ThreeTRXShiftLoopTime"
+# kinds whose tiny SGD step runs on the card against the CPU: a weighted
+# score fusion, the two-road head, a cross combiner, batch statistics and pad
+# shifts (not DGA2: its enrichment's PE dropout is fixed at 0.1, and the
+# card and the CPU draw other masks)
+FUSION_STEP_KINDS = ("tsf", "two_road", "ThreeCross", "TwoFusionBatchFusion",
+                     "ThreeTRXShuffleTime_faithful")
+TSF_WEIGHTS = ("1", "0.5", "0.5")
+# at the synthetic source's default noise (0.3), and for TSF still at 1.0,
+# the tiny teachers classify every query with near certainty and a step's
+# gradients (1e-8 to 1e-5) are rounding; at 2.0 accuracy is 58-83% and the
+# largest gradients 0.05-13
+FUSION_NOISE = 2.0
+# the device-resident steps: together every branch kind (pair, multi, cross,
+# self, batch), combiner (sum, cross), post-processor (mlp), head (trx, ctx,
+# otam), the bespoke heads and 4 modalities
+FUSION_DEVICE_KINDS = ("dga2", "two_road", "ThreeCross", "ThreeFusion3_videoaxis",
+                       "TwoCTXShuffleTime", "OTAMThreeTRXShiftLoopTime", "FourStrm",
+                       "TwoFusionBatchFusion")
+FUSION_MODS = ("rgb", "depth", "flow", "skeleton", "ir")
+
+
+def fusion_cfg(name, kind, **model):
+    """Preset ``name`` with the modalities that ``kind`` indexes: five for
+    Five*, four for Four* and ThreeCombinationTRX, else three."""
+    k = kind.split(":")[-1]
+    n = 5 if k.startswith("Five") else 4 if k.startswith(
+        ("Four", "ThreeCombinationTRX")) else 3
+    base = preset(name)
+    return base.replace(model=dataclasses.replace(
+        base.model, modalities=FUSION_MODS[:n], **model))
+
+
+def _weights(kind):
+    return {"score_weights": tuple(map(float, TSF_WEIGHTS))} if kind == "tsf" else {}
+
+
+def fusion_tct_calls(kind):
+    """TCT kernel launches of one forward of ``kind``'s teacher: the calls
+    of the kernel's wrapper on a tiny CPU copy (the same heads at any
+    width)."""
+    from litemkd_torch.train import make_mfm
+    cfg = fusion_cfg("tiny", kind, compute_dtype="float32")
+    model = make_mfm(cfg, kind, **_weights(kind)).eval()
+    b = to_device(cli_teacher.SyntheticMultiModalSource(cfg, seed=0).sample_batch(
+        np.random.default_rng(0), 1), torch.device("cpu"))
+    with torch.inference_mode():
+        return tct_wrapper_calls(lambda: model(b.support_clips, b.support_labels,
+                                               b.query_clips))
+
+
+def fusion_zoo_check(label):
+    """Every fusion kind (the 5 bespoke ones, the 31 composer presets and
+    one ``otam:`` kind) at tiny width in fp32, dropout 0, on the card
+    against the same weights and episodes on the CPU: logits within
+    1e-4·max, the TCT launches on the card equal to the wrapper's calls on
+    the CPU; for ``FUSION_STEP_KINDS`` also one SGD step (metrics 1e-4
+    relative, gradients 1e-3·max|g|). Synthetic features at noise
+    ``FUSION_NOISE``."""
+    from litemkd_torch.models.teacher import FUSION_PRESETS
+    rows = []
+    for kind in FUSION_BESPOKE + tuple(FUSION_PRESETS) + (FUSION_OTAM,):
+        cfg = fusion_cfg("tiny", kind, compute_dtype="float32", trans_dropout=0.0)
+        batch = cli_teacher.SyntheticMultiModalSource(
+            cfg, seed=1, noise=FUSION_NOISE).sample_batch(
+            np.random.default_rng(0), cfg.train.tasks_per_batch)
+        cpu = create_mfm_train_state(cfg, "cpu", kind, **_weights(kind))
+        gpu = create_mfm_train_state(cfg, "cuda", kind, **_weights(kind),
+                                     state_dict=copy.deepcopy(cpu.model.state_dict()))
+        calls = fusion_tct_calls(kind)
+        out = {}
+        for state, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            b = to_device(batch, torch.device(dev))
+            zero_counts()
+            with torch.inference_mode():
+                out[dev] = state.model.eval()(b.support_clips, b.support_labels,
+                                              b.query_clips)["logits"].cpu()
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                launched = read_counts()["tct_attention"]
+        want = out["cpu"]
+        err = _max_err(out["cuda"], want) / want.abs().max().item()
+        if not err <= 1e-4 or launched != calls:
+            raise AssertionError(f"fusion kind {kind} on the card: relative error "
+                                 f"{err}, launches {launched} (the CPU calls {calls})")
+        row = f"{kind} {calls} launch(es) rel {err:.1e}"
+        if kind in FUSION_STEP_KINDS:
+            step = make_mfm_train_step(cfg)
+            m_cpu = step(cpu, to_device(batch, torch.device("cpu")))
+            m_gpu = step(gpu, to_device(batch, torch.device("cuda")))
+            torch.cuda.synchronize()
+            for k, v in m_cpu.items():
+                if not abs(m_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-6:
+                    raise AssertionError(f"{kind} train step metric {k}: cuda "
+                                         f"{m_gpu[k].item()} vs cpu {v.item()}")
+            gp = dict(gpu.model.named_parameters())
+            grads = {n: p.grad for n, p in cpu.model.named_parameters()
+                     if p.grad is not None}
+            g_max = max(g.abs().max().item() for g in grads.values())
+            g_err = max(_max_err(gp[n].grad, g) for n, g in grads.items())
+            if not g_err <= 1e-3 * g_max:
+                raise AssertionError(f"{kind} gradients: {g_err} > 1e-3 * {g_max}")
+            row += (f", step loss {m_gpu['task_loss'].item():.4g}, grads "
+                    f"{g_err / g_max:.1e} of max|g|")
+        rows.append(row)
+        del cpu, gpu
+    torch.cuda.empty_cache()
+    log(f"[fusion] every kind, tiny fp32, card vs cpu on {label}: " + "; ".join(rows))
+
+
+def fusion_argv(root, ckdir, kind):
+    """``cli.train_teacher`` at the full width of ``preset("mfm_teacher")``
+    on phase 6's tree: 2 steps of 16 episodes and an 8-episode eval."""
+    return ["--preset", "mfm_teacher", "--dataset", "hmdb", "--feature_root",
+            str(root), "--traintestlist", str(root / "splits"),
+            "--tasks_per_batch", str(TRAIN_EPISODES), "--training_iterations",
+            str(TRAIN_EPISODES * TRAIN_STEPS), "--test_iters",
+            str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
+            "--print_freq", "1", "-c", str(ckdir), "--fusion", kind,
+            "--device", "cuda"]
+
+
+def fusion_cli_train(label, kind, argv, ckdir):
+    """One full-width ``cli.train_teacher`` run with the launch counts read
+    around it, against the kind's calls per forward (one forward a step and
+    one an eval chunk). Returns the counts and the checkpoint."""
+    per_forward = fusion_tct_calls(kind)
+    eval_chunks = math.ceil(EVAL_TASKS / 8)
+    want = dict(tct_attention=per_forward * (TRAIN_STEPS + eval_chunks),
+                bn_sums=0, bn_bwd_sums=0)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, history = cli_teacher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del state
+    log(f"[fusion] {kind} training launches {counts}, expected {want} "
+        f"({per_forward} a forward)")
+    if counts != want:
+        raise AssertionError(f"{kind} launch counts {counts} != {want}")
+    steps = [r for r in _train_records(ckdir) if "task_loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            math.isfinite(r[k]) for r in steps for k in r):
+        raise AssertionError(f"bad {kind} training metrics {steps}")
+    if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
+        raise AssertionError(f"bad {kind} mid-training eval {history}")
+    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    log(f"[fusion] {kind} per-step metrics: " + json.dumps(
+        [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
+        + f"; eval {history[0]}")
+    log(f"[fusion] {kind} through cli.train_teacher on {label}: "
+        f"{n_eps / wall:.3f} episodes/s end to end ({wall:.2f} s for {n_eps} "
+        f"training + {EVAL_TASKS} eval episodes, model set-up and checkpoint "
+        f"write included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    return counts, ckdir / f"checkpoint_{n_eps}.pt", per_forward
+
+
+def tsf_main_path(label, run_root):
+    """The reference's score-fusion flow over the port's own expert: phase
+    8's ``expert_trx`` run directory grafted into the rgb branch (its one
+    TCT set checked equal in the branch before training), TSF trained
+    through ``cli.train_teacher --fusion tsf --score_weights 1 0.5 0.5
+    --branch_ckpt rgb=<run>``, then its checkpoint through
+    ``--test_only``. Returns the summed launch counts."""
+    from litemkd_torch.train import make_mfm
+    from litemkd_torch.train.teacher_steps import load_tsf_branches
+    root, expert, ckdir = run_root / "tree", run_root / "expert", run_root / "tsf"
+    cfg = preset("mfm_teacher")
+    model = make_mfm(cfg, "tsf", **_weights("tsf"))
+    load_tsf_branches(model, {"rgb": str(expert)}, cfg.model.temp_set)
+    mgr = CheckpointManager(str(expert))
+    head = torch.load(mgr.path(mgr.latest_step()), map_location="cpu",
+                      weights_only=True)["model_state_dict"]
+    for k in ("k_linear.weight", "v_linear.bias", "norm_k.weight"):
+        got = model.m1_branch.transformers[0].get_parameter(k)
+        if not torch.equal(got.detach(), head[f"classifier.transformers.{k}"]):
+            raise AssertionError(f"TSF graft of {expert}: {k} differs")
+    del model
+    argv = fusion_argv(root, ckdir, "tsf") + ["--score_weights", *TSF_WEIGHTS,
+                                             "--branch_ckpt", f"rgb={expert}"]
+    counts, ckpt, per_forward = fusion_cli_train(label, "tsf", argv, ckdir)
+    zero_counts()
+    summary = cli_teacher.main(["--test_only", "-m", str(ckpt), "--fusion", "tsf",
+                                "--score_weights", *TSF_WEIGHTS, "--num_test_tasks",
+                                str(EVAL_TASKS), "--feature_root", str(root),
+                                "--device", "cuda"])
+    test_counts = read_counts()
+    if test_counts["tct_attention"] != per_forward * math.ceil(EVAL_TASKS / 8) or \
+            summary["n_tasks"] != EVAL_TASKS or not math.isfinite(summary["accuracy"]):
+        raise AssertionError(f"bad TSF --test_only run: {summary}, {test_counts}")
+    log(f"[fusion] tsf {ckpt.name} through --test_only: {summary}; launches "
+        f"{test_counts}")
+    torch.cuda.empty_cache()
+    return {k: counts[k] + test_counts[k] for k in counts}
+
+
+def fusion_extract(label, what, argv, out, n_videos):
+    """``cli.extract --mode_extract mfm`` of the whole tree (``what`` names
+    the run in the log): every file (8, 2048) fp32 and finite, no kernel
+    launched. Returns the files."""
+    zero_counts()
+    t0 = time.perf_counter()
+    n = cli_extract.main(["--mode_extract", "mfm", "--out", str(out),
+                          "--batch_size", str(MFM_EXTRACT_BATCH),
+                          "--device", "cuda"] + argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    files = {f.relative_to(out): np.load(f) for f in out.rglob("feature.npy")}
+    if n != n_videos or len(files) != n_videos or any(counts.values()):
+        raise AssertionError(f"fusion extraction wrote {n} / {len(files)} of "
+                             f"{n_videos} videos with launches {counts}")
+    for f, a in files.items():
+        if a.shape != (8, 2048) or a.dtype != np.float32 or not np.isfinite(a).all():
+            raise AssertionError(f"bad fused feature {f}: {a.shape} {a.dtype}")
+    log(f"[fusion] extraction of {what} through cli.extract on {label}: {n} videos in {wall:.2f} s ({n / wall:.3f} videos/s end "
+        f"to end, model set-up included)")
+    return files
+
+
+def combination_main_path(label, run_root, n_videos):
+    """The scripts' ``combination_r+d+f`` model (ThreeTRXCombination)
+    through ``cli.train_teacher`` and ``cli.extract`` of its run directory
+    (its dump rolls m2 and m3 left, unlike its live fusion); then
+    ``cli.extract --fusion TwoCombinationTemTroShiftTRX_faithful`` from a
+    fresh init with ``--extract_side support`` and ``query``, whose trees
+    must differ in every file (the 3-stream branch is on the support side
+    only). Returns the training run's launch counts."""
+    root, ckdir = run_root / "tree", run_root / "combination"
+    kind = "ThreeTRXCombination"
+    counts, _, _ = fusion_cli_train(label, kind, fusion_argv(root, ckdir, kind),
+                                    ckdir)
+    fusion_extract(label, f"{kind} from its run directory",
+                   ["--fusion", kind, "-m", str(ckdir), "--feature_root", str(root)],
+                   run_root / "combination_fused", n_videos)
+    data = ["--preset", "mfm_teacher", "--dataset", "hmdb", "--feature_root",
+            str(root), "--traintestlist", str(root / "splits"), "--fusion",
+            "TwoCombinationTemTroShiftTRX_faithful"]
+    trees = {side: fusion_extract(label, f"{data[-1]} ({side} side, fresh init)",
+                                  data + ["--extract_side", side],
+                                  run_root / f"side_{side}", n_videos)
+             for side in ("support", "query")}
+    same = [f for f in trees["support"]
+            if np.allclose(trees["support"][f], trees["query"][f])]
+    if trees["support"].keys() != trees["query"].keys() or same:
+        raise AssertionError(f"support- and query-side trees agree on {len(same)} "
+                             "files")
+    log(f"[fusion] TwoCombinationTemTroShiftTRX_faithful: the support- and "
+        f"query-side trees differ in all {n_videos} files")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fusion_device_rate(label):
+    """For each of ``FUSION_DEVICE_KINDS`` at the full width of
+    ``preset("mfm_teacher")`` (FourStrm on a 4-modality batch), with the
+    data on the card: the 16-episode training step (CUDA events over 3
+    steps after one warm-up) with its TCT launches, peak memory and, from
+    one step under the profiler, the device's idle share; then the
+    8-episode eval chunk (5 after one warm-up) and its peak memory."""
+    for kind in FUSION_DEVICE_KINDS:
+        cfg = fusion_cfg("mfm_teacher", kind)
+        t0 = time.perf_counter()
+        state = create_mfm_train_state(cfg, "cuda", kind)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in state.model.parameters())
+        batch = mfm_device_batch(cfg, TRAIN_EPISODES, True)
+        step = make_mfm_train_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        ms = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+        launches = read_counts()["tct_attention"] / 4
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        idle = profile_step(lambda: step(state, batch), f"{kind} training step")
+        del batch
+        model = state.model.eval()
+        eval_batch = mfm_device_batch(cfg, 8, False, seed=1)
+        eval_step = make_mfm_eval_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        eval_ms = cuda_ms(lambda: eval_step(model, eval_batch), 5, warmup=1)
+        eval_peak = torch.cuda.max_memory_allocated() / 2**30
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        row = (f"{kind} ({n_params / 1e6:.1f} M parameters, set-up "
+               f"{setup_s:.2f} s): step {ms:.3f} ms ({1e3 * TRAIN_EPISODES / ms:.3f} "
+               f"episodes/s), {launches:g} TCT launch(es) a step, peak "
+               f"{peak:.3f} GiB, idle share {idle_s}; eval {eval_ms:.3f} ms "
+               f"per 8-episode chunk ({8e3 / eval_ms:.3f} episodes/s), peak "
+               f"{eval_peak:.3f} GiB")
+        log(f"[fusion] device-resident on {label}: {row}")
+        del state, model, eval_batch
+        torch.cuda.empty_cache()
+
+
+def fusion_zoo_path(label, run_root):
+    """Phase 11 on phase 6's tree and phase 8's expert run: every kind card
+    vs CPU, TSF with the grafted expert and ThreeTRXCombination through the
+    CLIs at full width, and the device-resident steps. Returns the summed
+    launch counts of the CLI runs."""
+    t0 = time.perf_counter()
+    fusion_zoo_check(label)
+    tsf = tsf_main_path(label, run_root)
+    n_videos = MFM_CLASSES * (MFM_TRAIN_VIDS + MFM_TEST_VIDS)
+    combination = combination_main_path(label, run_root, n_videos)
+    fusion_device_rate(label)
+    log(f"[fusion] phase 11 took {time.perf_counter() - t0:.2f} s")
+    return {k: tsf[k] + combination[k] for k in tsf}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2240,6 +2587,8 @@ def main():
         zoo_counts = zoo_main_path(smi.splitlines()[0], run_root)
         # 10. the rest of the student zoo and the skeleton expert
         student_zoo_counts = student_zoo_path(smi.splitlines()[0], run_root)
+        # 11. the fusion-teacher zoo on phase 6's tree and phase 8's expert
+        fusion_counts = fusion_zoo_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -2255,6 +2604,11 @@ def main():
     log(f"[zoo] TCT kernel at CTX's training shape {CTX_TRAIN}: kernel_ms="
         f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
         f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, split TF32)")
+    t = tct_times["ctx_step"]
+    log(f"[fusion] TCT kernel at the ctx head's 16-episode shape {CTX_STEP}: "
+        f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
+        f"{t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, "
+        f"split TF32)")
     t = tct_times["mfm_train"]
     log(f"[mfm] TCT kernel at the MFM training shape {MFM_TRAIN}: kernel_ms="
         f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
@@ -2267,20 +2621,22 @@ def main():
              launches=(counts["tct_attention"] + mfm_counts["tct_attention"]
                        + video_counts["tct_attention"]
                        + expert_counts["tct_attention"] + zoo_counts["tct_attention"]
-                       + student_zoo_counts["tct_attention"]),
+                       + student_zoo_counts["tct_attention"]
+                       + fusion_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=(counts["bn_sums"] + video_counts["bn_sums"]
                        + expert_counts["bn_sums"] + zoo_counts["bn_sums"]
-                       + student_zoo_counts["bn_sums"]),
+                       + student_zoo_counts["bn_sums"] + fusion_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:103",
              launches=(counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"]
                        + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]
-                       + student_zoo_counts["bn_bwd_sums"]),
+                       + student_zoo_counts["bn_bwd_sums"]
+                       + fusion_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -21,10 +21,14 @@ modes, each writing a ``<class>/<video>/feature.npy`` tree:
         -m DIR/checkpoint_N.pt --feature_root R --traintestlist R/splits \\
         --out OUT
 
-  ``-m`` takes a ``ThreeTRXShiftLoopTime`` ``.pt`` (the port's checkpoint,
-  one that ``export_mfm_checkpoint`` wrote, or the reference's; strict) or
-  a checkpoint directory of the port (its newest checkpoint); without it
-  the teacher gets random weights from ``cfg.train.seed``.
+  ``--fusion`` takes every fusion kind that has an ``extract`` (all but
+  ``tsf``); ``--extract_side query`` dumps the query-side fusion of a
+  composer preset whose two sides differ. ``-m`` takes a
+  ``ThreeTRXShiftLoopTime`` ``.pt`` for ``--fusion mfm`` (the port's
+  checkpoint, one that ``export_mfm_checkpoint`` wrote, or the reference's;
+  strict) or a checkpoint directory of the port of any kind (its newest
+  checkpoint); without it the teacher gets random weights from
+  ``cfg.train.seed``.
 
 Runs on cuda unless ``--device`` says otherwise, with TF32 off.
 """
@@ -39,8 +43,8 @@ from ..data import MultiModalFeatureStore, VideoStore
 from ..models.student import init_student_
 from ..models.teacher import init_mfm_
 from ..tools.extract import extract_expert_features, extract_mfm_features
-from ..tools.weights import (load_pretrain_init, load_reference_mfm_state_dict,
-                             merge_state_dict)
+from ..tools.weights import (load_pretrain_init,
+                             load_reference_fusion_state_dict, merge_state_dict)
 from ..train import CheckpointManager, make_mfm, make_pretrain_model
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      apply_fusion_args, build_config, load_saved_config,
@@ -57,7 +61,8 @@ def parse(argv=None):
     p.add_argument("--mode_extract", choices=["expert", "mfm"], required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--test_model_path", "-m", default=None,
-                   help="mfm: a ThreeTRXShiftLoopTime .pt; expert: a "
+                   help="mfm: a ThreeTRXShiftLoopTime .pt (--fusion mfm); "
+                        "expert: a "
                         "pretrain, expert or torchvision .pt; or a "
                         "checkpoint directory of the port (random weights "
                         "without it)")
@@ -68,7 +73,13 @@ def parse(argv=None):
                         "extract_feature.py --model); feature dim follows "
                         "the trunk (512/512/2048)")
     p.add_argument("--fusion", default="mfm",
-                   help="fusion teacher kind; the port has mfm")
+                   help="fusion teacher kind for mfm mode: mfm | dga | dga2 | "
+                        "two_road | a composer preset | otam:<preset>")
+    p.add_argument("--extract_side", choices=["support", "query"],
+                   default="support",
+                   help="which fusion path side-asymmetric composer presets "
+                        "dump (the released classes never defined this; "
+                        "side-symmetric teachers reject 'query')")
     args = p.parse_args(argv)
     cfg = build_config(args, base=load_saved_config(args.test_model_path))
     return p, args, apply_fusion_args(cfg, args)
@@ -100,13 +111,13 @@ def load_expert_trunk(cfg, arch, path, device):
 
 def load_mfm(cfg, kind, path, device):
     """An eval-mode fusion teacher of ``kind`` (:func:`make_mfm`) on
-    ``device``: from a ``.pt`` file (strict, with the geometry guards), from
-    the newest checkpoint of a directory, or with random weights from
-    ``cfg.train.seed``."""
+    ``device``: from a ``.pt`` file (strict, through
+    :func:`load_reference_fusion_state_dict`), from the newest checkpoint
+    of a directory, or with random weights from ``cfg.train.seed``."""
     model = make_mfm(cfg, kind)
     path = _newest(path)
     if path:
-        model.load_state_dict(load_reference_mfm_state_dict(path, cfg),
+        model.load_state_dict(load_reference_fusion_state_dict(path, cfg, kind),
                               strict=True)
     else:
         init_mfm_(model, torch.Generator().manual_seed(cfg.train.seed))
@@ -133,6 +144,10 @@ def main(argv=None):
     if not args.feature_root:
         p.error("mfm extraction reads per-modality feature trees: pass "
                 "--feature_root")
+    path = args.test_model_path
+    if path and path.endswith((".pt", ".pth")) and args.fusion != "mfm":
+        p.error("torch checkpoint import supports --fusion mfm only "
+                "(the reference trains ThreeTRXShiftLoopTime)")
     device = resolve_device(args.device)
     set_fp32_math()
     model = load_mfm(cfg, args.fusion, args.test_model_path, device)
@@ -142,9 +157,11 @@ def main(argv=None):
                                    cfg.data.split, cfg.episode.seq_len,
                                    cfg.model.trans_linear_in_dim)
     if args.test_model_path:
-        print(f"loaded MFM teacher {args.test_model_path}")
+        print(f"loaded {args.fusion} teacher {args.test_model_path}")
     n = extract_mfm_features(store, model, args.out,
-                             batch_size=args.batch_size)
+                             batch_size=args.batch_size,
+                             fusion_kind=args.fusion,
+                             side=int(args.extract_side == "query"))
     print(f"extracted {n} fused videos → {args.out}")
     return n
 

@@ -2,7 +2,7 @@
 ``litemkd_tpu/ops/strm.py:30-139``; the reference's
 ``strm18_student.py:42-205`` and ``strmclassifiers_res18.py:162-246``).
 
-- :class:`TokenMLP` (also the 2-layer bottleneck) and
+- :class:`TokenMLP` (also the 2-layer bottleneck, :data:`BottleneckMLP2`) and
   :class:`BottleneckMLP3Res`: small MLPs over the token or channel axis;
 - :class:`SelfAttnBot`: patch self-attention (no 1/√d scale) behind a
   learned gate ``gamma`` that starts at 0, then a residual 3-layer
@@ -42,6 +42,11 @@ class TokenMLP(nn.Module):
 
     def forward(self, x):
         return self.out_fc(F.relu(self.inp_fc(x)))
+
+
+# the reference's Bottleneck_Perceptron_2_layer (the fusion teachers' MLP
+# post-processors) is byte-identical to Token_Perceptron
+BottleneckMLP2 = TokenMLP
 
 
 class BottleneckMLP3Res(nn.Module):

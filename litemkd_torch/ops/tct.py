@@ -102,6 +102,7 @@ class MultiSetTCT(nn.Module):
                  out_dim: int = 1152, temp_set=(2,), dropout: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.temp_set = tuple(temp_set)
         self.transformers = nn.ModuleList(
             TemporalCrossTransformer(way, shot, seq_len, in_dim=in_dim,
                                      out_dim=out_dim, set_size=s,

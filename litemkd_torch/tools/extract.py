@@ -16,16 +16,18 @@ mismatch raises.
 """
 from __future__ import annotations
 
+import inspect
 import os
+
 import numpy as np
 import torch
+from torch import nn
 
 from ..data.features import MultiModalFeatureStore
 from ..data.prefetch import DeferredHostSync, Prefetcher
 from ..data.splits import SplitIndex
 from ..data.video import VideoStore
 from ..models.backbones.classifier_net import ActionRecognitionNet
-from ..models.teacher import MFMTeacher
 from ..train.loop import move_to_device
 
 
@@ -43,12 +45,17 @@ def _iter_records(index: SplitIndex):
         yield from index.videos_for_class(c)
 
 
-def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
-                         out_root: str, batch_size: int) -> int:
-    """Fuse every video of both splits through ``model.extract`` on the
-    model's device in batches of ``batch_size`` videos and write the
-    feature tree under the store's class names; returns the number of
-    videos written.
+def extract_mfm_features(store: MultiModalFeatureStore, model: nn.Module,
+                         out_root: str, batch_size: int,
+                         fusion_kind: str = "mfm", side: int = 0) -> int:
+    """Fuse every video of both splits through ``model.extract`` (a fusion
+    teacher of ``fusion_kind``) on the model's device in batches of
+    ``batch_size`` videos and write the feature tree under the store's
+    class names; returns the number of videos written. ``side`` 1 dumps
+    the query-side fusion of a composer preset whose sides differ; a
+    teacher whose ``extract`` takes no side refuses it, and TSF has no
+    ``extract`` at all. Batch statistics and video-axis attention run over
+    each extraction batch, as in the JAX package.
 
     A :class:`Prefetcher` thread reads batch k+1 from disk and copies it
     from pinned memory while the device fuses batch k, and batch k's
@@ -57,6 +64,11 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
     first training video is fused again alone and must match its saved
     file within max(1e-4, 1e-2·max|saved|), the JAX package's
     self-consistency check; a mismatch raises."""
+    kw = ({"side": side}
+          if "side" in inspect.signature(model.extract).parameters else {})
+    if side and not kw:
+        raise ValueError(f"fusion kind {fusion_kind!r} is side-symmetric; "
+                         "query-side extraction does not apply")
     device = next(model.parameters()).device
     class_names = store.class_names
     model.eval()
@@ -73,7 +85,7 @@ def extract_mfm_features(store: MultiModalFeatureStore, model: MFMTeacher,
 
     def fuse(feats):
         with torch.inference_mode():
-            return model.extract(feats)
+            return model.extract(feats, **kw)
 
     count = 0
 

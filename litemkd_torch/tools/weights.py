@@ -505,6 +505,168 @@ def load_reference_mfm_state_dict(path: str, cfg: Config
 
 
 # ---------------------------------------------------------------------------
+# The fusion zoo: TSF, DGA/DGA2, two-road and the composer presets
+# ---------------------------------------------------------------------------
+
+def _cross(sd, prefix, p):
+    for n in ("query", "key", "value"):
+        _lin(sd, f"{prefix}.self.{n}", p[n])
+    _lin(sd, f"{prefix}.output.dense", p["out"])
+    _ln(sd, f"{prefix}.output.LayerNorm", p["norm"])
+
+
+def _mlp2(sd, prefix, p):
+    _lin(sd, f"{prefix}.inp_fc", p["inp_fc"])
+    _lin(sd, f"{prefix}.out_fc", p["out_fc"])
+
+
+def _trainable_pe(sd, prefix, p):
+    sd[f"{prefix}.position_embeddings.weight"] = _np(p["position_embeddings"])
+    _ln(sd, f"{prefix}.LayerNorm", p["LayerNorm_0"])
+
+
+def _heads(head: dict, cfg: Config, prefix: str, sets: bool = True
+           ) -> Dict[str, torch.Tensor]:
+    """A JAX ``TrxBranch``'s params → ``<prefix>.transformers.{i}.*`` in
+    ``temp_set`` order, or with ``sets=False`` (the CTX head's one
+    frame-level TCT, ``tct_1``) ``<prefix>.transformers.*``."""
+    t = head["transformers"]
+    pairs = ([(f"{prefix}.transformers.{i}", t[f"tct_{s}"])
+              for i, s in enumerate(cfg.model.temp_set)] if sets
+             else [(f"{prefix}.transformers", t["tct_1"])])
+    out: Dict[str, torch.Tensor] = {}
+    for dst, tct in pairs:
+        out.update({f"{dst}.{k}": v for k, v in tct_state_dict_from_jax(
+            tct, cfg.model.trans_linear_in_dim,
+            int(1.5 * cfg.episode.seq_len)).items()})
+    return out
+
+
+def _composed_from_jax(params: dict, cfg: Config, name: str, otam: bool
+                       ) -> Dict[str, torch.Tensor]:
+    from ..models.teacher.composer import (PRESET_MODULES, PRESET_OPTIONS,
+                                           PRESETS, distinct_modules,
+                                           preset_base)
+    branches = PRESETS[name]
+    sd: Dict[str, np.ndarray] = {}
+    first, _ = distinct_modules(branches)
+    for i, dst in zip(first, PRESET_MODULES[preset_base(name)]):
+        p = params[f"branch_modules_{i}"]
+        kind = branches[i].kind
+        if kind in ("pair", "multi"):
+            _stream_fusion(sd, dst, p)
+        elif kind == "cross":
+            _cross(sd, dst, p)
+        elif kind == "self":
+            _encoder_params(sd, dst, p["encoder"])
+        else:
+            _lin(sd, f"{dst}.f1", p["f1"])
+    opts = PRESET_OPTIONS.get(name, {})
+    if opts.get("combine") == "cross":
+        _cross(sd, "fusion2", params["combiner"])
+    if opts.get("post") == "mlp":
+        _mlp2(sd, "MLP", params["post_mlp"])
+    out = _tensors(sd)
+    if not otam and opts.get("head") != "otam":
+        out.update(_heads(params["classifier"], cfg, "bracnch",
+                          sets=opts.get("head") != "ctx"))
+    return out
+
+
+def fusion_state_dict_from_jax(variables: dict, cfg: Config, kind: str
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX variables (numpy leaves) of ``make_mfm(cfg, kind=kind)`` → the
+    port's state dict for the same kind, which is the reference class's
+    key layout: the inverse of the JAX package's ``_COMPOSED_IMPORTERS``
+    and ``_tsf_import`` (``litemkd_tpu/tools/torch_import.py:702-826``),
+    with the buffers the port keeps (each TCT's ``pe.pe`` table and
+    identity ``norm_v``; ``mlp1.pe.pe`` of DGA2). ``mfm`` goes through
+    :func:`mfm_state_dict_from_jax`."""
+    from ..models.teacher.fusion import tsf_branch_name
+    if kind == "mfm":
+        return mfm_state_dict_from_jax(variables, cfg)
+    params = variables["params"]
+    if kind == "tsf":
+        out: Dict[str, torch.Tensor] = {}
+        for i, m in enumerate(cfg.model.modalities):
+            out.update(_heads(params[f"branch_{m}"], cfg, tsf_branch_name(i)))
+        return out
+    sd: Dict[str, np.ndarray] = {}
+    if kind in ("dga", "dga2"):
+        _stream_fusion(sd, "fusion1", params["fusion1"])
+        _lin(sd, "fusion2.affine_scale", params["fusion2"]["affine_scale"])
+        _lin(sd, "fusion2.affine_bias", params["fusion2"]["affine_bias"])
+        if kind == "dga2":
+            e = params["mlp1"]
+            sd["mlp1.pe.pe"] = sinusoidal_pe(int(1.5 * cfg.episode.seq_len),
+                                             cfg.model.trans_linear_in_dim)[None]
+            _mlp2(sd, "mlp1.Tok_MLP", e["tok_mlp"])
+            _mlp2(sd, "mlp1.Bot_MLP", e["bot_mlp"])
+    elif kind in ("two_road", "two_road_videoaxis"):
+        for i in range(3):
+            _trainable_pe(sd, f"fusion.positionEncoding{i + 1}",
+                          params[f"pes_{i}"])
+        _encoder_params(sd, "fusion.transformer_encoder", params["encoder"])
+        _lin(sd, "fusion.f1", params["proj"])
+        _lin(sd, "f1", params["road1"])
+        _lin(sd, "f2", params["road2"])
+        _mlp2(sd, "MLP1", params["mlp1"])
+        _mlp2(sd, "MLP2", params["mlp2"])
+    else:
+        otam = kind.startswith("otam:")
+        return _composed_from_jax(params, cfg, kind[5:] if otam else kind,
+                                  otam)
+    out = _tensors(sd)
+    out.update(_heads(params["branch"], cfg, "bracnch"))
+    return out
+
+
+# keys of reference files that no module reads (the JAX package's importers
+# skip them): TwoCombinationCTX's whole TwoCross ``fusion1`` carries a dead
+# TCT head, and the released FourTransforFusion a dead positionEncoding4
+_DEAD_KEYS = {"TwoCombinationCTX": ("fusion1.bracnch.",),
+              "FourStrm_videoaxis": ("fusion.positionEncoding4.",)}
+
+
+def load_reference_fusion_state_dict(path: str, cfg: Config, kind: str
+                                     ) -> Dict[str, torch.Tensor]:
+    """A reference fusion-teacher ``.pt`` of any ``--model`` class (or the
+    port's own checkpoint of that kind) as a state dict for ``make_mfm(cfg,
+    kind)``: the counterpart of the JAX package's
+    ``load_composed_checkpoint`` (``torch_import.py:828-849``). ``kind``
+    takes a preset, its ``*_faithful`` or ``*_videoaxis`` variant (the base
+    class's file), ``otam:<preset>`` (the preset's fusion modules; a TCT
+    head in the file is not read), a bespoke kind or ``mfm``
+    (:func:`load_reference_mfm_state_dict`). A TSF file is 3-modality. The
+    caller loads the result strictly."""
+    from ..models.teacher.composer import PRESETS, preset_base
+    otam = kind.startswith("otam:")
+    name = kind[5:] if otam else kind
+    base = name[: -len("_faithful")] if name.endswith("_faithful") else name
+    if base == "mfm":
+        return load_reference_mfm_state_dict(path, cfg)
+    bespoke = ("tsf", "dga", "dga2", "two_road", "two_road_videoaxis")
+    if base not in bespoke and name not in PRESETS:
+        raise ValueError(f"no composed-checkpoint importer for kind {kind!r}; "
+                         f"known: {sorted(set(bespoke) | set(PRESETS))}")
+    if base == "tsf" and len(cfg.model.modalities) != 3:
+        raise ValueError(
+            "TSF checkpoints are 3-modality (m1_branch/skeleton_branch/"
+            f"flow_branch, model.py:1154-1191) but cfg.model.modalities="
+            f"{cfg.model.modalities!r} has {len(cfg.model.modalities)} "
+            "entries — pass exactly three --modalities")
+    sd = load_reference_state_dict(path)
+    if name in PRESETS and preset_base(name) == "ThreeStrm":
+        # the reference's feature-space ScoreFusion CLASS (model.py:1960-
+        # 1989) is ThreeStrm with its encoder at ``fusion_temproal``
+        sd = {("three_fusion." + k[len("fusion_temproal."):]
+               if k.startswith("fusion_temproal.") else k): v
+              for k, v in sd.items()}
+    dead = _DEAD_KEYS.get(base, ()) + (("bracnch.",) if otam else ())
+    return {k: v for k, v in sd.items() if not k.startswith(dead)}
+
+
+# ---------------------------------------------------------------------------
 # Partial imports: torchvision, pretrain and expert files
 # ---------------------------------------------------------------------------
 

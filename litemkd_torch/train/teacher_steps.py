@@ -1,14 +1,16 @@
-"""The MFM fusion teacher's train and eval steps (port of
-``litemkd_tpu/train/teacher_steps.py:34-156``; the reference's
-``multi_fusion.py:381-494``), and the supervised pretraining state and step
-(``teacher_steps.py:222-313``; the reference's ``pretrain/pretrain.py``).
+"""The fusion teachers' train and eval steps and TSF branch grafting (port
+of ``litemkd_tpu/train/teacher_steps.py:34-219``; the reference's
+``multi_fusion.py:381-494`` and ``score_fusion_run.py``), and the
+supervised pretraining state and step (``teacher_steps.py:222-313``; the
+reference's ``pretrain/pretrain.py``).
 
-Episodic training of the hierarchical fusion teacher over per-modality
-features. The per-episode loss is the reference's: the SUM of the per-query
+Episodic training of a fusion teacher (the MFM, TSF, DGA, two-road or a
+composer preset) over per-modality features. The per-episode loss is the reference's: the SUM of the per-query
 cross-entropies divided by ``tasks_per_batch`` (``teacher/code/utils.py:
 179-194``, ``multi_fusion.py:485``), summed over the episodes of a batch.
 The whole batch (16 episodes at the preset) runs as one forward and one
-backward, so the TCT kernel launches once a step.
+backward, so the TCT kernel launches once a step for each TCT set of each
+head.
 
 Pretraining is plain mean cross-entropy over class labels for a per-modality
 :class:`ActionRecognitionNet` or :class:`ViTClassifier`, with the
@@ -18,7 +20,9 @@ resnet backbone, a TRX head and ``TRXLoss``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import json
+import os
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,11 +31,17 @@ from ..config import Config
 from ..models.backbones.classifier_net import (ActionRecognitionNet,
                                               ViTClassifier)
 from ..models.student import compute_dtype, init_student_
-from ..models.teacher import MFMTeacher, init_mfm_
+from ..models.teacher import (ComposedFusionTeacher, DGAFusionTeacher,
+                              FUSION_PRESET_EXTRACT, FUSION_PRESET_MODULES,
+                              FUSION_PRESET_OPTIONS, FUSION_PRESETS,
+                              MFMTeacher, ScoreFusion, TwoRoadFusionTeacher,
+                              init_mfm_)
+from ..models.teacher.composer import preset_base
 from ..ops.dtypes import anchor_dtype
 from ..ops.positional import bind_dropout_generator
-from ..tools.weights import merge_state_dict
+from ..tools.weights import load_reference_state_dict, merge_state_dict
 from ..utils.metrics import per_episode_accuracy
+from .checkpoint import CheckpointManager
 from .schedule import make_optimizer
 from .steps import EpisodeBatch, TrainState, dropout_seeds
 
@@ -43,25 +53,64 @@ def sum_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels[..., None]).squeeze(-1).sum(-1)
 
 
-def make_mfm(cfg: Config, kind: str = "mfm") -> MFMTeacher:
-    """The fusion teacher of ``kind``; the port has ``"mfm"``
-    (``ThreeTRXShiftLoopTime``). It runs at the fp32 anchor (fp64 under a
-    float64 config), as the JAX package runs it."""
-    if kind != "mfm":
-        raise NotImplementedError(
-            f"fusion kind {kind!r} is not ported yet (ROADMAP queue 6: TSF, "
-            "DGA, two-road, the composer presets and the *_videoaxis "
-            "variants); the port has 'mfm'")
+def make_mfm(cfg: Config, kind: str = "mfm",
+             score_weights: Optional[Sequence[float]] = None) -> torch.nn.Module:
+    """The fusion teacher of ``kind``, with the JAX package's dispatch and
+    messages (``litemkd_tpu/train/teacher_steps.py:40-96``): ``mfm``
+    (``ThreeTRXShiftLoopTime``), ``tsf`` (score fusion, ``score_weights``
+    one per modality, 1 each by default), ``dga``/``dga2``,
+    ``two_road``/``two_road_videoaxis``, a composer preset
+    (:data:`FUSION_PRESETS`), or ``otam:<preset>`` (the preset's branches
+    under an OTAM head). The MFM runs at the fp32 anchor (fp64 under a
+    float64 config); every other kind at fp32, as in the JAX package
+    (:func:`teacher_dtype`)."""
     m = cfg.model
-    return MFMTeacher(way=cfg.episode.way, shot=cfg.episode.shot,
-                      seq_len=cfg.episode.seq_len, in_dim=m.trans_linear_in_dim,
-                      out_dim=m.trans_linear_out_dim, temp_set=m.temp_set,
-                      depth=m.trans_num, shirt_num=m.shirt_num,
-                      modalities=m.modalities, dropout=m.trans_dropout,
-                      compute_dtype=anchor_dtype(compute_dtype(cfg)))
+    kw = dict(way=cfg.episode.way, shot=cfg.episode.shot,
+              seq_len=cfg.episode.seq_len, in_dim=m.trans_linear_in_dim,
+              out_dim=m.trans_linear_out_dim, temp_set=m.temp_set,
+              modalities=m.modalities, dropout=m.trans_dropout)
+    if kind == "tsf":
+        return ScoreFusion(weights=(tuple(score_weights)
+                                    if score_weights is not None
+                                    else (1.0,) * len(m.modalities)), **kw)
+    if kind in ("dga", "dga2"):
+        return DGAFusionTeacher(depth=m.trans_num, with_enrich=kind == "dga2",
+                                **kw)
+    if kind in ("two_road", "two_road_videoaxis"):
+        # _videoaxis: the released ThreeTranToTwo's no-batch_first encoder
+        return TwoRoadFusionTeacher(video_axis=kind.endswith("_videoaxis"),
+                                    **kw)
+    if kind in FUSION_PRESETS or kind.startswith("otam:"):
+        name = kind[5:] if kind.startswith("otam:") else kind
+        if name not in FUSION_PRESETS:
+            raise ValueError(f"unknown composer preset {name!r}; "
+                             f"choose from {sorted(FUSION_PRESETS)}")
+        opts = dict(FUSION_PRESET_OPTIONS.get(name, {}))
+        if kind.startswith("otam:"):
+            opts["head"] = "otam"     # otam: overrides a preset's head option
+        return ComposedFusionTeacher(
+            branches=FUSION_PRESETS[name], depth=m.trans_num,
+            extract_branches=FUSION_PRESET_EXTRACT.get(name),
+            module_names=FUSION_PRESET_MODULES[preset_base(name)], **opts, **kw)
+    if kind == "mfm":
+        return MFMTeacher(depth=m.trans_num, shirt_num=m.shirt_num,
+                          compute_dtype=teacher_dtype(cfg, kind), **kw)
+    raise ValueError(
+        f"unknown fusion kind {kind!r}; choose mfm | tsf | dga | dga2 | "
+        f"two_road | two_road_videoaxis | otam:<preset> | one of "
+        f"{sorted(FUSION_PRESETS)}")
+
+
+def teacher_dtype(cfg: Config, kind: str) -> torch.dtype:
+    """The dtype a fusion teacher runs at: the MFM at the anchor of the
+    config's compute dtype (fp32, fp64 under a float64 config), every other
+    kind at fp32, as the JAX package's ``make_mfm`` passes
+    ``compute_dtype`` to the MFM alone."""
+    return anchor_dtype(compute_dtype(cfg)) if kind == "mfm" else torch.float32
 
 
 def create_mfm_train_state(cfg: Config, device, kind: str = "mfm", *,
+                           score_weights: Optional[Sequence[float]] = None,
                            state_dict: Optional[Dict] = None) -> TrainState:
     """A fresh training state on ``device`` for the fusion teacher of
     ``kind`` (:func:`make_mfm`): random weights from ``cfg.train.seed``
@@ -71,12 +120,12 @@ def create_mfm_train_state(cfg: Config, device, kind: str = "mfm", *,
     teacher."""
     device = torch.device(device)
     seed = cfg.train.seed
-    model = make_mfm(cfg, kind)
+    model = make_mfm(cfg, kind, score_weights)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
         init_mfm_(model, torch.Generator().manual_seed(seed))
-    model.to(device=device, dtype=anchor_dtype(compute_dtype(cfg))).train()
+    model.to(device=device, dtype=teacher_dtype(cfg, kind)).train()
     generator = torch.Generator(device=device).manual_seed(dropout_seeds(seed)[0])
     bind_dropout_generator(model, generator)
     opt, sched = make_optimizer(cfg.train.optimizer, model.parameters(),
@@ -85,6 +134,92 @@ def create_mfm_train_state(cfg: Config, device, kind: str = "mfm", *,
     return TrainState(step=0, episodes_seen=0, model=model, teacher=None,
                       optimizer=opt, scheduler=sched, generator=generator,
                       teacher_generator=None)
+
+
+_TCT_PARAMS = ("k_linear.weight", "k_linear.bias", "v_linear.weight",
+               "v_linear.bias", "norm_k.weight", "norm_k.bias")
+
+
+def _expert_sets(path: str, temp_set) -> Dict[Optional[int], Dict]:
+    """The TCT sets of an expert: ``{None: flat}`` for a single-set head or
+    ``{s: set}`` per tuple size ``s``, each holding the weights that
+    :data:`_TCT_PARAMS` names. A ``.pt``/``.pth`` is a run.py expert
+    artifact (``transformers.{i}.*``, sets in ``temp_set`` order); a
+    directory is a run of the port (its newest ``checkpoint_<n>.pt``,
+    ``classifier.transformers.*``, sets in its ``config.json``'s
+    ``temp_set`` order)."""
+    if str(path).endswith((".pt", ".pth")):
+        sd = load_reference_state_dict(path)
+        n = 0
+        while f"transformers.{n}.k_linear.weight" in sd:
+            n += 1
+        if n == 0:
+            raise KeyError(f"{path} has no transformers.N TCT sets — "
+                           "not a run.py expert checkpoint")
+        if n > 1 and (temp_set is None or len(temp_set) != n):
+            raise ValueError(
+                f"{path} holds {n} TCT sets; pass temp_set with that "
+                f"many entries (got {temp_set}) for the ModuleList order")
+        prefixes = ({None: "transformers.0"} if n == 1 else
+                    {s: f"transformers.{i}" for i, s in enumerate(temp_set)})
+    else:
+        mgr = CheckpointManager(path)
+        if mgr.latest_step() is None:
+            raise FileNotFoundError(f"{path} holds no checkpoint_<n>.pt")
+        sd = torch.load(mgr.path(mgr.latest_step()), map_location="cpu",
+                        weights_only=True)["model_state_dict"]
+        head = "classifier.transformers"
+        if f"{head}.k_linear.weight" in sd:
+            prefixes = {None: head}
+        else:
+            with open(os.path.join(path, "config.json")) as f:
+                temp_set = Config.from_dict(json.load(f)).model.temp_set
+            prefixes = {s: f"{head}.{i}" for i, s in enumerate(temp_set)}
+            if f"{head}.0.k_linear.weight" not in sd:
+                raise KeyError(f"{path}: its checkpoint has no {head} TCT")
+    return {s: {k: sd[f"{p}.{k}"] for k in _TCT_PARAMS}
+            for s, p in prefixes.items()}
+
+
+def load_tsf_branches(model: ScoreFusion, branch_ckpts: Dict[str, str],
+                      temp_set=None) -> ScoreFusion:
+    """Graft separately trained per-modality experts into a TSF teacher's
+    branches (the reference's ``score_fusion_run.py``
+    ``--rgb/skeleton/flow_test_model_path``; the JAX package's
+    ``load_tsf_branches``, ``teacher_steps.py:163-219``): each expert's
+    episodic head (``k_linear``, ``v_linear``, ``norm_k`` of every TCT set)
+    replaces the branch of its modality, in place.
+
+    ``branch_ckpts``: {modality: path}; a ``.pt``/``.pth`` is a run.py
+    expert artifact, a directory a run of the port (see
+    :func:`_expert_sets`); ``temp_set`` gives a multi-set ``.pt``'s
+    ModuleList order. A single-set expert is replicated into every set of
+    the branch; a multi-set one must have the branch's sets."""
+    for m, path in branch_ckpts.items():
+        key = f"branch_{m}"
+        if not isinstance(model, ScoreFusion) or m not in model.modalities:
+            raise KeyError(f"{key} not in the {type(model).__name__} teacher "
+                           "— is --fusion tsf set?")
+        branch = model.branch(m)
+        src = _expert_sets(path, temp_set)
+        want = set(branch.temp_set)
+        if None in src:
+            src = {s: src[None] for s in want}
+        elif set(src) != want:
+            raise ValueError(
+                f"temp_set mismatch grafting {path} into {key}: expert "
+                f"has sets {sorted(f'tct_{s}' for s in src)}, TSF branch "
+                f"expects {sorted(f'tct_{s}' for s in want)}")
+        with torch.no_grad():
+            for s, tct in zip(branch.temp_set, branch.transformers):
+                for k, v in src[s].items():
+                    dst = tct.get_parameter(k)
+                    if tuple(v.shape) != tuple(dst.shape):
+                        raise ValueError(
+                            f"grafting {path} into {key}: {k} has shape "
+                            f"{tuple(v.shape)}, the branch {tuple(dst.shape)}")
+                    dst.copy_(v)
+    return model
 
 
 def make_mfm_train_step(cfg: Config) -> Callable:
@@ -113,9 +248,9 @@ def make_mfm_train_step(cfg: Config) -> Callable:
 
 def make_mfm_eval_step(cfg: Config) -> Callable:
     """``eval_step(model, batch) → (E,)`` per-episode accuracies of an
-    eval-mode MFM teacher, computed on the batch's device."""
+    eval-mode fusion teacher, computed on the batch's device."""
 
-    def eval_step(model: MFMTeacher, batch: EpisodeBatch) -> torch.Tensor:
+    def eval_step(model: torch.nn.Module, batch: EpisodeBatch) -> torch.Tensor:
         with torch.inference_mode():
             logits = model(batch.support_clips, batch.support_labels,
                            batch.query_clips)["logits"]

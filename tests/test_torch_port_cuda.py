@@ -42,6 +42,7 @@ def _inputs(seed, device, e, q, u, dk, w, s):
     (2, 3, 28, 97, 5, 5, None),       # dk % 4 != 0: the 4-byte copy path
     (1, 3, 56, 1152, 5, 5, None),     # U=56 at the flagship dk: 18 score tiles a warp
     (4, 25, 8, 1152, 5, 5, None),     # CTX's training chunk: single frames, U=8
+    (16, 25, 8, 1152, 5, 5, None),    # the composer's ctx head: a 16-episode step
     (4, 25, 56, 1152, 5, 5, None),    # TRX_multi/TRM's temp-set-3 chunk: U=56
     (16, 20, 28, 1152, 5, 5, None),   # the skeleton expert's 16-episode step
     (1, 2, 20, 64, 2, 32, None),      # 640 keys: three score passes, 16-column slices
@@ -366,6 +367,40 @@ def test_mfm_train_step_on_card_matches_cpu(cuda_device):
             assert p.grad is None, name
             continue
         assert (p.grad.cpu() - grads[name]).abs().max().item() <= 1e-3 * g_max, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,launches", [("ThreeCross", 1),
+                                           ("TwoCTXShuffleTime", 1),
+                                           ("tsf", 3),
+                                           ("OTAMThreeTRXShiftLoopTime", 0)])
+def test_fusion_teacher_on_card_matches_cpu(cuda_device, kind, launches):
+    """A tiny fp32 fusion teacher of ``kind`` (dropout 0) on the card: its
+    logits equal the CPU's within 1e-4·max|logits|, with one TCT launch
+    per TCT set of each head (TSF: one per modality; OTAM: none)."""
+    import copy
+    import dataclasses
+    from litemkd_torch.cli.train_teacher import SyntheticMultiModalSource
+    from litemkd_torch.train import create_mfm_train_state, to_device
+    base = preset("tiny")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, compute_dtype="float32", trans_dropout=0.0))
+    batch = SyntheticMultiModalSource(cfg, seed=1).sample_batch(
+        np.random.default_rng(0), cfg.train.tasks_per_batch)
+    cpu = create_mfm_train_state(cfg, "cpu", kind)
+    gpu = create_mfm_train_state(cfg, cuda_device, kind,
+                                 state_dict=copy.deepcopy(cpu.model.state_dict()))
+    out = {}
+    for state, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        b = to_device(batch, dev)
+        with torch.inference_mode():
+            before = ta.tct_attention.launches
+            logits = state.model.eval()(b.support_clips, b.support_labels,
+                                        b.query_clips)["logits"]
+            out[str(dev)] = (logits.cpu(), ta.tct_attention.launches - before)
+    (want, _), (got, n) = out["cpu"], out[str(cuda_device)]
+    assert n == launches
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 @pytest.mark.cuda

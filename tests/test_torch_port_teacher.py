@@ -37,7 +37,6 @@ from litemkd_tpu.train import teacher_steps as jts
 from litemkd_tpu.train.schedule import make_optimizer as jax_make_optimizer
 from litemkd_tpu.train.steps import TrainState as JaxTrainState
 import litemkd_torch.config as torch_config
-from litemkd_torch.cli import extract as extract_cli
 from litemkd_torch.cli import train_teacher as tt_cli
 from litemkd_torch.data import MultiModalEpisodeSampler, MultiModalFeatureStore
 from litemkd_torch.models import make_backbone
@@ -489,18 +488,21 @@ def _with_train(cfg, **kw):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        tt_cli.main(["--preset", "tiny", "--fusion", "tsf", "--device", "cpu",
-                     "--debug"])
-    # the skeleton entries of the JAX registry (queue 5) now build
+    """What this test once refused now builds: the TSF teacher trains
+    through the CLI with its weights (it has no ``extract``: score fusion
+    fuses no features), DGA builds, and the skeleton entries of the JAX
+    registry build."""
+    from litemkd_torch.models.teacher import DGAFusionTeacher, ScoreFusion
+    state, _ = tt_cli.main(["--preset", "tiny", "--dataset", "synthetic",
+                            "--fusion", "tsf", "--score_weights", "1", "0.5",
+                            "0.5", "--device", "cpu", "--debug"])
+    assert isinstance(state.model, ScoreFusion) and state.step == 2
+    assert state.model.weights == (1.0, 0.5, 0.5)
     enc = make_backbone("s3d", _cfg(torch_config.preset))
     assert type(enc).__name__ == "SkeletonEncoder" and not enc.t_tr.video_axis
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        extract_cli.main(["--mode_extract", "mfm", "--fusion", "tsf",
-                          "--preset", "tiny", "--feature_root", "x",
-                          "--out", "x", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        make_mfm(_cfg(torch_config.preset), kind="dga")
+    assert not hasattr(state.model, "extract")
+    assert isinstance(make_mfm(_cfg(torch_config.preset), kind="dga"),
+                      DGAFusionTeacher)
 
 
 @pytest.mark.parametrize("fmt", ["native", "reference"])
@@ -585,7 +587,8 @@ def test_train_teacher_cli_matches_jax(jax_mfm, feature_root, tmp_path,
 
 def test_teacher_clis_run_on_cpu_without_jax(feature_root, tmp_path):
     """A fresh interpreter trains the tiny teacher on synthetic data
-    through the CLI on the CPU, evaluates its checkpoint with
+    through the CLI on the CPU (the MFM and a composer preset, ThreeCross),
+    evaluates the MFM's checkpoint with
     ``--test_only``, extracts the fixture tree with a teacher of the
     fixture's geometry, and ends with no JAX, flax or litemkd_tpu module
     loaded."""
@@ -598,6 +601,9 @@ def test_teacher_clis_run_on_cpu_without_jax(feature_root, tmp_path):
         "from litemkd_torch.cli import extract, train_teacher\n"
         f"state, _ = train_teacher.main(['--preset', 'tiny', '--dataset', "
         f"'synthetic', '--device', 'cpu', '-c', {str(ck)!r}])\n"
+        "composed, _ = train_teacher.main(['--preset', 'tiny', '--dataset', "
+        "'synthetic', '--fusion', 'ThreeCross', '--device', 'cpu', "
+        "'--debug'])\n"
         f"s = train_teacher.main(['--test_only', '-m', "
         f"{str(ck / 'checkpoint_4.pt')!r}, '--device', 'cpu'])\n"
         f"n = extract.main(['--mode_extract', 'mfm', '--preset', 'tiny', "
@@ -607,11 +613,12 @@ def test_teacher_clis_run_on_cpu_without_jax(feature_root, tmp_path):
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'litemkd_tpu'))\n"
         "print(json.dumps({'bad': bad, 'step': state.step, "
+        "'composed_step': composed.step, "
         "'tasks': s['n_tasks'], 'videos': n}))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
-        "bad": [], "step": 2, "tasks": 2,
+        "bad": [], "step": 2, "composed_step": 2, "tasks": 2,
         "videos": N_CLASSES * (N_TRAIN + N_TEST)}
     assert len(list(out.rglob("feature.npy"))) == N_CLASSES * (N_TRAIN + N_TEST)
