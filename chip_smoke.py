@@ -113,7 +113,20 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    the device-resident training step and eval chunk of eight kinds that
    cover every branch kind, combiner, post-processor and head (FourStrm
    on 4 modalities), with peak memory and the idle share. Phase 3 adds
-   the TCT kernel at the ctx head's 16-episode shape (E 16, Q 25, U 8).
+   the TCT kernel at the ctx head's 16-episode shape (E 16, Q 25, U 8);
+12. serving, on the checkpoints of phases 6 and 7: ``litemkd_torch.cli.
+   export`` of phase 7's student (as a student and with ``--teacher``) and
+   of phase 6's MFM (``--mfm``) to reference ``.pt`` files, each equal to
+   its checkpoint and loaded strictly; ``cli.export --aot --aot_check`` of
+   the student to a ``torch.export`` artifact traced on the card (2 TCT op
+   nodes) that answers 16 requests drawn from phase 7's tree with 2 kernel
+   launches each and the eager student's predictions, with device times,
+   requests/s and peak memory of both; ``cli.export --aot --mfm`` of the
+   MFM to an extract artifact held against eager extraction on phase 6's
+   features, with its videos/s; ``cli.demo --once`` from the artifact and
+   from the checkpoint (the same predictions), and ``cli.demo`` serving
+   three pages from a subprocess; ``tools.pipeline_bench`` at a small size
+   and ``tools.shrink_dataset`` of phase 7's tree.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -126,6 +139,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -136,6 +150,8 @@ import torch.nn.functional as F
 from PIL import Image
 
 from litemkd_torch import preset
+from litemkd_torch.cli import demo as cli_demo
+from litemkd_torch.cli import export as cli_export
 from litemkd_torch.cli import extract as cli_extract
 from litemkd_torch.cli import gen_fixed_split as cli_gen
 from litemkd_torch.cli import pretrain as cli_pretrain
@@ -167,6 +183,8 @@ EXPERT_TRAIN = dict(e=4, q=20, u=28, dk=1152, w=5, s=5)  # expert_trx chunk: qpc
 CTX_TRAIN = dict(e=4, q=25, u=8, dk=1152, w=5, s=5)  # CTX: single frames, U = 8
 # the composer's frame-level ctx head (TwoCTXShuffleTime*): a 16-episode step
 CTX_STEP = dict(e=16, q=25, u=8, dk=1152, w=5, s=5)
+# serving (phase 12): one request of one episode
+SERVE = dict(e=1, q=5, u=28, dk=1152, w=5, s=5)
 RAGGED = [dict(e=2, q=3, u=28, dk=100, w=130, s=1),
           dict(e=3, q=11, u=28, dk=100, w=7, s=3),
           dict(e=2, q=3, u=28, dk=97, w=5, s=5),     # dk % 4 != 0: 4-byte copies
@@ -336,7 +354,8 @@ def tct_phase():
                               ("mfm_train", MFM_TRAIN, 3),
                               ("expert_train", EXPERT_TRAIN, 4),
                               ("ctx_train", CTX_TRAIN, 7),
-                              ("ctx_step", CTX_STEP, 10)):
+                              ("ctx_step", CTX_STEP, 10),
+                              ("serve", SERVE, 11)):
         args, err = check_kernel(shape, seed)
         times[name] = time_kernel(shape, args)
         auto = ta.group_size(shape["e"], shape["q"], shape["w"], n_sm)
@@ -2501,6 +2520,302 @@ def fusion_zoo_path(label, run_root):
     return {k: tsf[k] + combination[k] for k in tsf}
 
 
+# ---------------------------------------------------------------------------
+# Serving: reference .pt exports, torch.export artifacts, the demo, and the
+# host tools, on the checkpoints and trees of phases 6 and 7
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 16
+SERVE_EXTRACT_BATCH = 8
+
+
+def _export_pt(label, src, out, flags):
+    """``cli.export`` of ``src`` to a reference ``.pt`` with ``flags``: no
+    kernel launched, ``iteration`` the checkpoint's, every tensor equal to
+    the checkpoint's under its exported name."""
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_export.main(["--ckpt", str(src), "--out", str(out), "--device", "cuda"] + flags)
+    dt = time.perf_counter() - t0
+    if read_counts() != dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0):
+        raise AssertionError(f"cli.export {flags} launched {read_counts()}")
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    got = torch.load(out, map_location="cpu", weights_only=True)
+    want = ckpt["model_state_dict"]
+    if "--teacher" in flags:
+        head = "classifier.transformers."
+        want = {f"bracnch.transformers.0.{k[len(head):]}": v for k, v in want.items()
+                if k.startswith(head)}
+    if got["iteration"] != ckpt["iteration"] or set(got["model_state_dict"]) != set(want) \
+            or not all(torch.equal(got["model_state_dict"][k], v) for k, v in want.items()):
+        raise AssertionError(f"cli.export {flags}: {out.name} differs from {src}")
+    log(f"[serve] cli.export {' '.join(flags) or '(student)'} of {src.parent.name}/"
+        f"{src.name}: {len(want)} tensors, {out.stat().st_size / 1e6:.1f} MB in "
+        f"{dt:.2f} s; equal to the checkpoint's; {label}")
+    return got["model_state_dict"]
+
+
+def _export_aot(argv):
+    """``cli.export --aot`` with its stdout captured; returns (stdout,
+    seconds of the whole call, the manifest ``cli.export`` returns, which
+    holds the seconds of ``torch.export.export`` and ``torch.export.save``)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        manifest = cli_export.main(argv)
+    log(buf.getvalue().rstrip())
+    return buf.getvalue(), time.perf_counter() - t0, manifest["seconds"]
+
+
+def _on_card(batch):
+    return (torch.from_numpy(batch.support_clips).to("cuda"),
+            torch.from_numpy(batch.support_labels).to("cuda", torch.int64),
+            torch.from_numpy(batch.query_clips).to("cuda"))
+
+
+def _serve_requests(name, fn, batches, sample_s):
+    """Answer every request with ``fn`` (host arrays in, logits back on the
+    host), then time it on batches already on the card; returns the
+    logits, with the launch counts of the answering run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = [fn(*_on_card(b)).float().cpu() for b in batches]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    on_card = [_on_card(b) for b in batches]
+    ms = cuda_ms(lambda: [fn(*b) for b in on_card], 3, warmup=1) / len(batches)
+    busy = device_ms(lambda: fn(*on_card[0]), iters=10)
+    n = len(batches)
+    log(f"[serve] {name}: {ms:.3f} device ms a request (CUDA events, batch on the "
+        f"card; device busy {busy:.3f} ms of it by torch.profiler, idle share "
+        f"{1 - busy / ms:.3f}); {n / (sample_s + wall):.3f} requests/s end to end ({sample_s:.2f} s "
+        f"host sampling + {wall:.2f} s copy, score and read-back for {n} requests); "
+        f"peak memory {peak:.3f} GiB")
+    del on_card
+    return logits, counts
+
+
+def _demo_server(artifact, log_path):
+    """``cli.demo`` serving ``artifact`` on a free port in a subprocess:
+    GET /?seed=0..2 must answer 200 with a page that names the accuracy.
+    The server is shut down whatever happens."""
+    import urllib.request
+    repo = Path(__file__).resolve().parent
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "litemkd_torch.cli.demo", "-m",
+                                 str(artifact), "--port", "0", "--device", "cuda"],
+                                cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = [None]
+            reader = threading.Thread(target=lambda: line.__setitem__(
+                0, proc.stdout.readline()), daemon=True)
+            reader.start()
+            reader.join(timeout=300)
+            if not line[0] or "demo serving on http://127.0.0.1:" not in line[0]:
+                raise AssertionError(f"the demo server did not start: {line[0]!r}; "
+                                     f"{Path(log_path).read_text()[-2000:]}")
+            url = line[0].split()[-1]
+            for seed in range(3):
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"{url}/?seed={seed}", timeout=300) as resp:
+                    status, body = resp.status, resp.read().decode()
+                if status != 200 or f"(seed {seed}) — accuracy" not in body:
+                    raise AssertionError(f"GET /?seed={seed}: {status} {body[:300]}")
+                acc = body.split("accuracy ")[1].split("<")[0]
+                log(f"[serve] demo server {url}/?seed={seed}: {status}, accuracy {acc}, "
+                    f"{time.perf_counter() - t0:.3f} s")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log(f"[serve] demo server stopped (exit {proc.returncode})")
+
+
+def serving_path(label, run_root):
+    """Phase 12 on the checkpoints of phases 6 and 7: ``cli.export`` to the
+    reference's student, teacher and MFM files; the student's scorer
+    artifact (``cli.export --aot --aot_check``) answering requests drawn
+    from phase 7's tree against the eager student; the MFM's extract
+    artifact against eager extraction; ``cli.demo`` from the artifact and
+    the checkpoint, and as a server; ``tools.pipeline_bench`` and
+    ``tools.shrink_dataset``. Returns the phase's launch counts."""
+    import contextlib
+    import io
+    from litemkd_torch.cli.common import load_saved_config
+    from litemkd_torch.models import BatchedStudent
+    from litemkd_torch.tools import aot, pipeline_bench, shrink_dataset
+    from litemkd_torch.train import make_mfm
+    t_phase = time.perf_counter()
+    n_eps = TRAIN_EPISODES * TRAIN_STEPS
+    run, mfm_run = run_root / "video_run", run_root / "mfm"
+    ckpt, mfm_ckpt = run / f"checkpoint_{n_eps}.pt", mfm_run / f"checkpoint_{n_eps}.pt"
+    out = run_root / "serving"
+    out.mkdir()
+    total = dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0)
+
+    def add(counts, want_tct):
+        if counts != dict(tct_attention=want_tct, bn_sums=0, bn_bwd_sums=0):
+            raise AssertionError(f"launches {counts}, expected {want_tct} TCT and no BN")
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) reference .pt files, each loaded strictly into a fresh module
+    cfg, mcfg = load_saved_config(ckpt), load_saved_config(mfm_ckpt)
+    BatchedStudent(cfg).load_state_dict(
+        _export_pt(label, ckpt, out / "student.pt", []), strict=True)
+    _export_pt(label, ckpt, out / "teacher.pt", ["--teacher"])
+    cli_test.load_teacher(cfg, str(out / "teacher.pt"), "cpu")
+    with torch.device("meta"):
+        make_mfm(mcfg).load_state_dict(
+            _export_pt(label, mfm_ckpt, out / "mfm.pt", ["--mfm"]), strict=True,
+            assign=True)
+
+    # (b) the student's scorer artifact against the eager student
+    artifact = run / "model.litemkd"
+    zero_counts()
+    printed, export_s, secs = _export_aot(
+        ["--ckpt", str(ckpt), "--out", str(artifact), "--aot", "--aot_check",
+         "--aot_episodes", "1", "--device", "cuda"])
+    if "smoke check OK: logits (1, 5, 5)" not in printed:
+        raise AssertionError("cli.export --aot_check printed no smoke check")
+    add(read_counts(), 2)
+    t0 = time.perf_counter()
+    program, manifest = aot.load_program(artifact)
+    nodes = aot.op_nodes(program)
+    del program
+    scorer, _ = aot.load_serving_artifact(artifact)
+    load_s = time.perf_counter() - t0
+    log(f"[serve] scorer artifact {artifact.name}: {artifact.stat().st_size / 1e6:.1f} MB; "
+        f"cli.export --aot --aot_check {export_s:.2f} s (torch.export.export "
+        f"{secs['export']:.2f} s, torch.export.save {secs['save']:.2f} s, then a "
+        f"reload and one check), load {load_s:.2f} s; {nodes} litemkd.tct_attention nodes; "
+        f"manifest {json.dumps({k: manifest[k] for k in ('platforms', 'device', 'torch_version', 'episodes', 'input_dtypes')})}")
+    if nodes != 2 or manifest["platforms"] != ["cuda"]:
+        raise AssertionError(f"scorer artifact: {nodes} TCT nodes, {manifest['platforms']}")
+    sampler = build_sampler(cfg, need_teacher=False)
+    t0 = time.perf_counter()
+    batches = [sampler.sample_batch(np.random.default_rng(1000 + i), 1, train=False)
+               for i in range(SERVE_REQUESTS)]
+    sample_s = time.perf_counter() - t0
+    eager = cli_test.load_student(cfg, str(ckpt), "cuda")
+
+    def eager_fn(sup, lab, qry):
+        with torch.inference_mode():
+            return merge_logits(cfg.distill.name, eager(sup, lab, qry)["logits"])
+
+    got, counts = _serve_requests("scorer artifact", scorer, batches, sample_s)
+    add(counts, 2 * SERVE_REQUESTS)
+    want, counts = _serve_requests("eager BatchedStudent", eager_fn, batches, sample_s)
+    add(counts, 2 * SERVE_REQUESTS)
+    got, want = torch.stack(got), torch.stack(want)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    truth = torch.from_numpy(np.stack([b.query_labels for b in batches]))
+    acc = (got.argmax(-1) == truth).float().mean().item()
+    log(f"[serve] {SERVE_REQUESTS} requests of 1 episode: artifact vs eager "
+        f"max_abs_err {err:.3e} (max|logit| {scale:.3e}); predictions equal: {same}; "
+        f"accuracy {acc:.3f}; {label}")
+    if not same or not err <= 1e-3 * scale:
+        raise AssertionError(f"the scorer artifact differs from eager: {err} of {scale}")
+    del eager, scorer, batches
+    torch.cuda.empty_cache()
+
+    # (c) the MFM's extract artifact against eager extraction
+    extract = mfm_run / "extract.litemkd"
+    zero_counts()
+    printed, export_s, secs = _export_aot(
+        ["--ckpt", str(mfm_ckpt), "--out", str(extract), "--aot", "--mfm",
+         "--aot_batch", str(SERVE_EXTRACT_BATCH), "--aot_check", "--device", "cuda"])
+    if "smoke check OK: fused" not in printed:
+        raise AssertionError("cli.export --aot --mfm --aot_check printed no smoke check")
+    t0 = time.perf_counter()
+    extractor, manifest = aot.load_serving_artifact(extract)
+    load_s = time.perf_counter() - t0
+    files = sorted((run_root / "tree" / "rgb").glob("*/*/feature.npy"))[:SERVE_EXTRACT_BATCH]
+    feats = {}
+    for m in mcfg.model.modalities:
+        paths = [run_root / "tree" / m / f.parent.parent.name / f.parent.name / "feature.npy"
+                 for f in files]
+        feats[m] = torch.from_numpy(np.stack([
+            np.load(p) if p.exists() else np.zeros_like(np.load(files[0]))
+            for p in paths])).to("cuda")
+    fused = extractor(feats)
+    with torch.device("cuda"):
+        teacher = make_mfm(mcfg)
+    teacher.load_state_dict(torch.load(mfm_ckpt, map_location="cpu",
+                                       weights_only=True)["model_state_dict"])
+    teacher.eval()
+
+    def eager_extract():
+        with torch.inference_mode():
+            return teacher.extract(feats)
+
+    ref = eager_extract()
+    err, scale = (fused - ref).abs().max().item(), ref.abs().max().item()
+    art_ms = cuda_ms(lambda: extractor(feats), 10)
+    eager_ms = cuda_ms(eager_extract, 10)
+    add(read_counts(), 0)
+    log(f"[serve] extract artifact {extract.name}: {extract.stat().st_size / 1e9:.3f} GB; "
+        f"cli.export --aot --mfm --aot_check {export_s:.2f} s (torch.export.export "
+        f"{secs['export']:.2f} s, torch.export.save {secs['save']:.2f} s), load "
+        f"{load_s:.2f} s; "
+        f"{SERVE_EXTRACT_BATCH} videos of phase 6's tree: max_abs_err {err:.3e} vs eager "
+        f"extract (max|x| {scale:.3e}); {SERVE_EXTRACT_BATCH / art_ms * 1e3:.3f} videos/s "
+        f"on the device ({art_ms:.3f} ms a batch; eager {eager_ms:.3f} ms); {label}")
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"the extract artifact differs from eager: {err} of {scale}")
+    del extractor, teacher, fused, ref, feats
+    torch.cuda.empty_cache()
+
+    # (d) the demo from the artifact and from the checkpoint, then as a server
+    rows = {}
+    for name, path in (("artifact", artifact), ("checkpoint", ckpt)):
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_demo.main(["-m", str(path), "--once", "--device", "cuda"])
+        rows[name] = json.loads(buf.getvalue())
+        add(read_counts(), 2)
+        log(f"[serve] cli.demo --once from the {name}: {time.perf_counter() - t0:.2f} s, "
+            f"predictions {[r['predicted'] for r in rows[name]]}, truth "
+            f"{[r['true'] for r in rows[name]]}")
+    if [r["predicted"] for r in rows["artifact"]] != \
+            [r["predicted"] for r in rows["checkpoint"]]:
+        raise AssertionError(f"the demo's predictions differ: {rows}")
+    _demo_server(artifact, run_root / "demo_server.log")
+
+    # (e) the host tools
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pipeline_bench.main(["--episodes", "2", "--img", "112", "--way", "5",
+                             "--shot", "1", "--frames", "8"])
+    log("[serve] tools.pipeline_bench --episodes 2 --img 112 --shot 1: "
+        + "; ".join(buf.getvalue().strip().splitlines()))
+    if "PIL decode" not in buf.getvalue():
+        raise AssertionError("pipeline_bench printed no PIL rate")
+    frames = run_root / "frames"
+    t0 = time.perf_counter()
+    n = shrink_dataset.shrink(str(frames), str(run_root / "frames_l8"), 8)
+    videos = sorted(d for d in frames.glob("*/*") if d.is_dir())
+    kept = [len(list((run_root / "frames_l8" / v.parent.name / v.name).iterdir()))
+            for v in videos]
+    log(f"[serve] tools.shrink_dataset of phase 7's tree: {n} videos of {len(videos)}, "
+        f"frames a video {sorted(set(kept))}, {time.perf_counter() - t0:.2f} s")
+    if n != len(videos) or set(kept) != {8}:
+        raise AssertionError(f"shrink_dataset: {n} of {len(videos)} videos, {set(kept)}")
+    log(f"[serve] phase 12 launches {total}; took {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2589,6 +2904,9 @@ def main():
         student_zoo_counts = student_zoo_path(smi.splitlines()[0], run_root)
         # 11. the fusion-teacher zoo on phase 6's tree and phase 8's expert
         fusion_counts = fusion_zoo_path(smi.splitlines()[0], run_root)
+        # 12. serving: exports, artifacts and the demo on the checkpoints
+        # of phases 6 and 7
+        serve_counts = serving_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -2609,6 +2927,10 @@ def main():
         f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
         f"{t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, "
         f"split TF32)")
+    t = tct_times["serve"]
+    log(f"[serve] TCT kernel at the serving request's shape {SERVE}: kernel_ms="
+        f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+        f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}, split TF32)")
     t = tct_times["mfm_train"]
     log(f"[mfm] TCT kernel at the MFM training shape {MFM_TRAIN}: kernel_ms="
         f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
@@ -2622,7 +2944,8 @@ def main():
                        + video_counts["tct_attention"]
                        + expert_counts["tct_attention"] + zoo_counts["tct_attention"]
                        + student_zoo_counts["tct_attention"]
-                       + fusion_counts["tct_attention"]),
+                       + fusion_counts["tct_attention"]
+                       + serve_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",

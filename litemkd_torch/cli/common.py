@@ -4,7 +4,9 @@ MFM-teacher and extraction paths read, copied from
 ``train_teacher``/``extract``/``pretrain`` CLIs (same names, same mapping
 onto the typed Config), plus ``--device``, the sampler, fixed-episode
 files and the device choice. Flags of paths the port does not have yet
-(meshes) come with those paths.
+(meshes) come with those paths. ``--pallas_tct`` sets ``model.use_pallas``
+and nothing else (a CUDA tensor always launches the TCT kernel);
+``--wandb`` reaches the training CLIs' :class:`MetricsLogger`.
 """
 from __future__ import annotations
 
@@ -42,6 +44,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trans_linear_out_dim", type=int, default=None)
     p.add_argument("--temp_set", nargs="+", type=int, default=None)
     p.add_argument("--trans_dropout", type=float, default=None)
+    p.add_argument("--pallas_tct", action="store_true", default=None,
+                   help="model.use_pallas, as in the JAX package; the port "
+                        "launches its TCT kernel on every CUDA tensor "
+                        "whatever it says")
     p.add_argument("--pallas_bn", action="store_true", default=None,
                    help="BN training moments from the port's BN-moment CUDA "
                         "kernels (model.pallas_bn; cuDNN otherwise)")
@@ -91,6 +97,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "rgb_path)")
     p.add_argument("--mode", default=None, help="experiment description tag")
     p.add_argument("--num_test_tasks", type=int, default=None)
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror metrics to wandb (reference trainwandb.py; "
+                        "skipped with a notice if the package is missing)")
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -247,7 +256,8 @@ def build_config(args: argparse.Namespace,
         trans_dropout=pick(m.trans_dropout, args.trans_dropout),
         pallas_bn=pick(m.pallas_bn, args.pallas_bn),
         freeze_bn=pick(m.freeze_bn, args.freeze_bn),
-        remat=pick(m.remat, args.remat)))
+        remat=pick(m.remat, args.remat),
+        use_pallas=pick(m.use_pallas, args.pallas_tct)))
     d = cfg.distill
     cfg = cfg.replace(distill=dataclasses.replace(
         d, name=pick(d.name, args.distill_name),
@@ -326,14 +336,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass --device cpu to run "
                            "on the CPU")
     return device
-
-
-def set_fp32_math() -> None:
-    """Full fp32 in matrix products and convolutions (no TF32), so fp32
-    results match the JAX package's highest-precision reference. The entry
-    points call this; bf16 trunks are unaffected."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def episode_index(sampler, train: bool = False):

@@ -42,13 +42,14 @@ import torch
 from ..data import MultiModalFeatureStore, VideoStore
 from ..models.student import init_student_
 from ..models.teacher import init_mfm_
+from ..ops.dtypes import set_fp32_math
 from ..tools.extract import extract_expert_features, extract_mfm_features
 from ..tools.weights import (load_pretrain_init,
                              load_reference_fusion_state_dict, merge_state_dict)
 from ..train import CheckpointManager, make_mfm, make_pretrain_model
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      apply_fusion_args, build_config, load_saved_config,
-                     resolve_device, set_fp32_math)
+                     resolve_device)
 
 
 def parse(argv=None):

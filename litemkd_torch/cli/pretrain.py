@@ -26,13 +26,13 @@ import torch
 
 from ..data import VideoStore
 from ..data.prefetch import DeferredHostSync, Prefetcher
+from ..ops.dtypes import set_fp32_math
 from ..tools.weights import load_pretrain_init
 from ..train import CheckpointManager, create_pretrain_state, make_pretrain_step
 from ..train.loop import move_to_device
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_pretrain_args,
-                     add_train_args, build_config, resolve_device,
-                     set_fp32_math)
+                     add_train_args, build_config, resolve_device)
 
 
 def parse(argv=None):
@@ -61,7 +61,8 @@ def main(argv=None):
                for r in index.videos_for_class(c)]
     n_classes = len(index.classes())
     logger = MetricsLogger(log_dir=None if args.debug else cfg.train.checkpoint_dir,
-                           run_name="pretrain", print_freq=cfg.train.print_freq)
+                           run_name="pretrain", print_freq=cfg.train.print_freq,
+                           use_wandb=args.wandb)
     logger.info(f"{len(records)} train videos over {n_classes} classes")
     if args.learning_rate is not None:
         logger.info("warning: --learning_rate is unused by pretrain — the "

@@ -37,12 +37,13 @@ import torch
 
 from ..config import Config
 from ..models import BatchedStudent, BatchedTeacher, init_student_
-from ..tools.weights import (load_reference_state_dict,
+from ..ops.dtypes import set_fp32_math
+from ..tools.weights import (load_reference_checkpoint,
                              teacher_state_dict_from_reference)
 from ..train import make_eval_step, make_teacher_eval_step, run_eval
 from .common import (add_common_args, add_device_arg, add_test_args,
                      build_config, build_sampler, load_fixed_specs,
-                     load_saved_config, resolve_device, set_fp32_math)
+                     load_saved_config, resolve_device)
 
 
 def load_student(cfg: Config, path: Optional[str] = None,
@@ -53,7 +54,7 @@ def load_student(cfg: Config, path: Optional[str] = None,
     from ``cfg.train.seed``."""
     model = BatchedStudent(cfg)
     if path:
-        model.load_state_dict(load_reference_state_dict(path), strict=True)
+        model.load_state_dict(load_reference_checkpoint(path)[0], strict=True)
     else:
         init_student_(model, torch.Generator().manual_seed(cfg.train.seed))
     return model.to(resolve_device(device)).eval()
@@ -70,7 +71,7 @@ def load_teacher(cfg: Config, path: Optional[str] = None,
                          "files, not the JAX package's Orbax checkpoints")
     if path:
         teacher.load_state_dict(teacher_state_dict_from_reference(
-            load_reference_state_dict(path), teacher), strict=True)
+            load_reference_checkpoint(path)[0], teacher), strict=True)
     else:
         init_student_(teacher, torch.Generator().manual_seed(cfg.train.seed + 1))
     return teacher.to(resolve_device(device)).eval()

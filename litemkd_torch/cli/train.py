@@ -34,13 +34,14 @@ import argparse
 import json
 
 from ..models import BatchedTeacher
-from ..tools.weights import (load_reference_state_dict, load_student_checkpoint,
+from ..ops.dtypes import set_fp32_math
+from ..tools.weights import (load_reference_checkpoint, load_student_checkpoint,
                              teacher_state_dict_from_reference)
 from ..train import run_training, verify_checkpoint_dir
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_train_args,
                      build_config, build_sampler, resolve_device,
-                     save_run_config, set_fp32_math)
+                     save_run_config)
 
 
 def parse(argv=None):
@@ -67,7 +68,8 @@ def main(argv=None):
                               cfg.train.resume_from_checkpoint)
     logger = MetricsLogger(
         log_dir=None if args.debug else (cfg.train.checkpoint_dir or "log"),
-        run_name=cfg.mode, print_freq=cfg.train.print_freq)
+        run_name=cfg.mode, print_freq=cfg.train.print_freq,
+        use_wandb=args.wandb)
     logger.info(f"config:\n{cfg.to_json()}")
     save_run_config(cfg)
     sampler = build_sampler(cfg, need_teacher=True)
@@ -75,7 +77,7 @@ def main(argv=None):
     teacher_sd = student_sd = None
     if args.teacher_checkpoint:
         teacher_sd = teacher_state_dict_from_reference(
-            load_reference_state_dict(args.teacher_checkpoint),
+            load_reference_checkpoint(args.teacher_checkpoint)[0],
             BatchedTeacher(cfg))
         logger.info(f"loaded teacher head from {args.teacher_checkpoint}")
     if args.init_checkpoint:

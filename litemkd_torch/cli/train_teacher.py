@@ -34,6 +34,7 @@ import os
 import numpy as np
 
 from ..data.synthetic import SyntheticEpisodeSource
+from ..ops.dtypes import set_fp32_math
 from ..tools.weights import load_reference_fusion_state_dict
 from ..train import (CheckpointManager, EpisodeBatch, create_mfm_train_state,
                      make_mfm_eval_step, make_mfm_train_step, run_eval,
@@ -43,7 +44,7 @@ from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      add_train_args, apply_fusion_args, build_config,
                      load_fixed_specs, load_saved_config, resolve_device,
-                     save_run_config, set_fp32_math)
+                     save_run_config)
 
 
 class SyntheticMultiModalSource:
@@ -157,7 +158,7 @@ def main(argv=None):
     log_dir = None if args.debug or args.test_only else (
         cfg.train.checkpoint_dir or "log")
     logger = MetricsLogger(log_dir=log_dir, run_name=args.fusion,
-                           print_freq=cfg.train.print_freq)
+                           print_freq=cfg.train.print_freq, use_wandb=args.wandb)
     logger.info(f"config:\n{cfg.to_json()}")
     save_run_config(cfg)
     sampler = build_mm_sampler(cfg, args.feature_root)

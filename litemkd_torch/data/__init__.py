@@ -9,6 +9,7 @@ from .episodes import (EpisodeMeta, EpisodeSampler, EpisodeSpec,
                        save_reference_fixed_episodes)
 from .prefetch import DeferredHostSync, Prefetcher
 from .multimodal import MultiModalEpisodeSampler
+from . import transforms
 
 __all__ = ["SyntheticEpisodeSource", "SplitIndex", "VideoRecord",
            "load_split_lists", "VideoStore", "ZipFrameStore",
@@ -17,4 +18,5 @@ __all__ = ["SyntheticEpisodeSource", "SplitIndex", "VideoRecord",
            "EpisodeMeta", "EpisodeSampler", "EpisodeSpec", "draw_episode_spec",
            "load_fixed_episodes", "load_reference_fixed_episodes",
            "save_fixed_episodes", "save_reference_fixed_episodes",
-           "DeferredHostSync", "Prefetcher", "MultiModalEpisodeSampler"]
+           "DeferredHostSync", "Prefetcher", "MultiModalEpisodeSampler",
+           "transforms"]

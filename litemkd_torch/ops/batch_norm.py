@@ -12,10 +12,12 @@ by the bytes they read; the source note says how the design answers that.
 
 Beside each kernel is its plain PyTorch version (``bn_sums_plain``,
 ``bn_bwd_sums_plain``: the math of ``_sums_jnp`` and ``_bwd_sums_jnp``).
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (a dtype other than bf16/fp32, a non-contiguous view). There is no
-fallback and no switch. Each launch adds one to ``bn_sums.launches`` or
-``bn_bwd_sums.launches``.
+Each pair sits behind one ``torch.library`` custom op, ``litemkd::bn_sums``
+and ``litemkd::bn_bwd_sums``, with a fake implementation, so that every
+kernel wrapper of the port can be traced: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises (a dtype other than
+bf16/fp32, a non-contiguous view). There is no fallback and no switch.
+Each launch adds one to ``bn_sums.launches`` or ``bn_bwd_sums.launches``.
 
 :func:`batch_norm_train` is the autograd Function of the JAX package's
 custom-VJP ``batch_norm_train`` (``pallas_bn.py:156-201``). The
@@ -117,12 +119,19 @@ def _workspace(lib, r: int, c: int, vec: int, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
-def bn_sums(x2: torch.Tensor) -> torch.Tensor:
-    """(R, C) → (2, C) fp32 [Σx, Σx²]. CPU: :func:`bn_sums_plain`; CUDA:
-    the kernel (bf16 or fp32, contiguous, or this raises)."""
-    _check_rows("x", x2)
-    if _same_device(x2).type == "cpu":
-        return bn_sums_plain(x2)
+@torch.library.custom_op("litemkd::bn_sums", mutates_args=(),
+                         device_types="cpu")
+def _bn_sums_op(x2: torch.Tensor) -> torch.Tensor:
+    return bn_sums_plain(x2)
+
+
+@_bn_sums_op.register_fake
+def _bn_sums_fake(x2):
+    return x2.new_empty((2, x2.shape[1]), dtype=torch.float32)
+
+
+@_bn_sums_op.register_kernel("cuda")
+def _bn_sums_cuda(x2):
     r, c = x2.shape
     dtype = _check_cuda([x2])
     vec = _vec([x2], c)
@@ -139,21 +148,30 @@ def bn_sums(x2: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bn_bwd_sums(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
-                inv: torch.Tensor) -> torch.Tensor:
-    """(R, C) dy and x, (C,) fp32 μ and σ⁻¹ → (2, C) fp32 [Σdy, Σdy·x̂].
-    CPU: :func:`bn_bwd_sums_plain`; CUDA: the kernel (dy and x of one dtype,
-    bf16 or fp32, contiguous, or this raises)."""
+def bn_sums(x2: torch.Tensor) -> torch.Tensor:
+    """(R, C) → (2, C) fp32 [Σx, Σx²] through ``litemkd::bn_sums``. CPU:
+    :func:`bn_sums_plain`; CUDA: the kernel (bf16 or fp32, contiguous, or
+    this raises)."""
     _check_rows("x", x2)
-    if dy2.shape != x2.shape:
-        raise ValueError(f"dy {tuple(dy2.shape)} != x {tuple(x2.shape)}")
-    c = x2.shape[1]
-    for name, t in (("mean", mean), ("inv", inv)):
-        if t.shape != (c,):
-            raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
-    if _same_device(dy2, x2, mean, inv).type == "cpu":
-        return bn_bwd_sums_plain(dy2, x2, mean, inv)
-    r = x2.shape[0]
+    _same_device(x2)
+    return torch.ops.litemkd.bn_sums(x2)
+
+
+@torch.library.custom_op("litemkd::bn_bwd_sums", mutates_args=(),
+                         device_types="cpu")
+def _bn_bwd_sums_op(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
+                    inv: torch.Tensor) -> torch.Tensor:
+    return bn_bwd_sums_plain(dy2, x2, mean, inv)
+
+
+@_bn_bwd_sums_op.register_fake
+def _bn_bwd_sums_fake(dy2, x2, mean, inv):
+    return x2.new_empty((2, x2.shape[1]), dtype=torch.float32)
+
+
+@_bn_bwd_sums_op.register_kernel("cuda")
+def _bn_bwd_sums_cuda(dy2, x2, mean, inv):
+    r, c = x2.shape
     dtype = _check_cuda([dy2, x2])
     for name, t in (("mean", mean), ("inv", inv)):
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -171,6 +189,23 @@ def bn_bwd_sums(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
         raise RuntimeError(f"bn_bwd_sums kernel launch failed: CUDA error {err}")
     bn_bwd_sums.launches += 1
     return out
+
+
+def bn_bwd_sums(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
+                inv: torch.Tensor) -> torch.Tensor:
+    """(R, C) dy and x, (C,) fp32 μ and σ⁻¹ → (2, C) fp32 [Σdy, Σdy·x̂]
+    through ``litemkd::bn_bwd_sums``. CPU: :func:`bn_bwd_sums_plain`; CUDA:
+    the kernel (dy and x of one dtype, bf16 or fp32, contiguous, or this
+    raises)."""
+    _check_rows("x", x2)
+    if dy2.shape != x2.shape:
+        raise ValueError(f"dy {tuple(dy2.shape)} != x {tuple(x2.shape)}")
+    c = x2.shape[1]
+    for name, t in (("mean", mean), ("inv", inv)):
+        if t.shape != (c,):
+            raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
+    _same_device(dy2, x2, mean, inv)
+    return torch.ops.litemkd.bn_bwd_sums(dy2, x2, mean, inv)
 
 
 bn_sums.launches = 0

@@ -16,3 +16,11 @@ def anchor_dtype(dtype: torch.dtype) -> torch.dtype:
 def anchor(x: torch.Tensor) -> torch.Tensor:
     """Cast ``x`` up to its anchor dtype (bf16/fp16/fp32 → fp32, fp64 → fp64)."""
     return x.to(anchor_dtype(x.dtype))
+
+
+def set_fp32_math() -> None:
+    """Full fp32 in matrix products and convolutions (no TF32), so fp32
+    results match the JAX package's highest-precision reference. The entry
+    points and the artifact loader call this; bf16 trunks are unaffected."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

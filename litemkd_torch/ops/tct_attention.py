@@ -23,8 +23,13 @@ launches the kernel for tensors on a CUDA device, or raises: there is no
 fallback from CUDA to the plain version and no switch that forces it.
 ``model.use_pallas`` has no effect on this choice.
 
-On CUDA the kernel runs inside a ``torch.autograd.Function``, so the logits
-carry a gradient. Its backward recomputes through the plain version
+Both routes sit behind one ``torch.library`` custom op,
+``litemkd::tct_attention``: its CPU implementation is the plain version,
+its CUDA implementation the kernel's launch, and its fake implementation
+gives the (E, Q, W) shape, so ``torch.export`` keeps the op as one node of
+the graph (neither the plain math inlined nor a ctypes call traced) and an
+exported program launches the kernel on the card. The op's autograd
+formula recomputes through the plain version
 (:func:`tct_attention_backward_plain`), as the JAX package's custom VJP
 recomputes through ``tct_attention_xla`` (``pallas_tct.py:168-172``): the
 JAX package has no backward kernel for this op.
@@ -69,19 +74,6 @@ def tct_attention_backward_plain(g, q_k, q_v, class_k, class_v):
                for t in (q_k, q_v, class_k, class_v)]
         out = tct_attention_plain(*ops)
         return torch.autograd.grad(out, ops, g)
-
-
-class _TCTAttention(torch.autograd.Function):
-    """The CUDA kernel forward; backward by plain recompute."""
-
-    @staticmethod
-    def forward(ctx, q_k, q_v, class_k, class_v):
-        ctx.save_for_backward(q_k, q_v, class_k, class_v)
-        return _launch(q_k, q_v, class_k, class_v)
-
-    @staticmethod
-    def backward(ctx, g):
-        return tct_attention_backward_plain(g, *ctx.saved_tensors)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,20 +165,48 @@ def _launch(q_k, q_v, class_k, class_v, group=None) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("litemkd::tct_attention", mutates_args=(),
+                         device_types="cpu")
+def _tct_attention_op(q_k: torch.Tensor, q_v: torch.Tensor,
+                      class_k: torch.Tensor, class_v: torch.Tensor
+                      ) -> torch.Tensor:
+    return tct_attention_plain(q_k, q_v, class_k, class_v)
+
+
+@_tct_attention_op.register_kernel("cuda")
+def _tct_attention_cuda(q_k, q_v, class_k, class_v):
+    return _launch(q_k, q_v, class_k, class_v)
+
+
+@_tct_attention_op.register_fake
+def _tct_attention_fake(q_k, q_v, class_k, class_v):
+    return q_k.new_empty((q_k.shape[0], q_k.shape[1], class_k.shape[1]),
+                         dtype=anchor_dtype(q_k.dtype))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    return tct_attention_backward_plain(g, *ctx.saved_tensors)
+
+
+_tct_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def tct_attention(q_k, q_v, class_k, class_v) -> torch.Tensor:
     """q_k, q_v (E, Q, U, dk); class_k, class_v (E, W, S, U, dk) → logits
-    (E, Q, W) fp32.
+    (E, Q, W) in the anchor dtype of q_k (fp32 on the card).
 
-    CPU tensors go through :func:`tct_attention_plain`. CUDA tensors launch
-    the kernel (fp32 and contiguous, or this raises) inside an autograd
-    Function whose backward recomputes through the plain version. Every
-    launch adds one to ``tct_attention.launches``."""
+    Calls the op ``litemkd::tct_attention``: CPU tensors go through
+    :func:`tct_attention_plain`, CUDA tensors launch the kernel (fp32 and
+    contiguous, or this raises); the backward recomputes through the plain
+    version on both. Every launch adds one to ``tct_attention.launches``."""
     _check(q_k, q_v, class_k, class_v)
-    if q_k.device.type == "cpu":
-        return tct_attention_plain(q_k, q_v, class_k, class_v)
-    if q_k.device.type != "cuda":
+    if q_k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tct_attention runs on cpu or cuda, not {q_k.device}")
-    return _TCTAttention.apply(q_k, q_v, class_k, class_v)
+    return torch.ops.litemkd.tct_attention(q_k, q_v, class_k, class_v)
 
 
 tct_attention.launches = 0

@@ -380,14 +380,17 @@ def _tct_prefix(sd: Dict[str, torch.Tensor]) -> Optional[str]:
     return None
 
 
-def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A reference ``.pt`` file's weights: unwraps ``model_state_dict`` and
-    drops DataParallel ``module.`` segments."""
+def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """A reference ``.pt`` file's weights and its ``iteration`` (0 where it
+    has none): unwraps ``model_state_dict`` and drops DataParallel
+    ``module.`` segments."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
+    iteration = 0
     if isinstance(raw, dict) and "model_state_dict" in raw:
+        iteration = int(raw.get("iteration", 0))
         raw = raw["model_state_dict"]
-    return {".".join(seg for seg in k.split(".") if seg != "module"): v
-            for k, v in raw.items()}
+    return ({".".join(seg for seg in k.split(".") if seg != "module"): v
+             for k, v in raw.items()}, iteration)
 
 
 def teacher_state_dict_from_reference(sd: Dict[str, torch.Tensor],
@@ -481,7 +484,7 @@ def load_reference_mfm_state_dict(path: str, cfg: Config
     with more encoder layers than ``trans_num``, another number of frames
     than ``seq_len`` or more TCT sets than ``temp_set`` raises, instead of
     loading a truncated teacher."""
-    sd = load_reference_state_dict(path)
+    sd = load_reference_checkpoint(path)[0]
     depth = cfg.model.trans_num
     for prefix in ("three_fusion", "fusion"):
         if (f"{prefix}.transformer_encoder.layers.{depth}."
@@ -655,7 +658,7 @@ def load_reference_fusion_state_dict(path: str, cfg: Config, kind: str
             f"flow_branch, model.py:1154-1191) but cfg.model.modalities="
             f"{cfg.model.modalities!r} has {len(cfg.model.modalities)} "
             "entries — pass exactly three --modalities")
-    sd = load_reference_state_dict(path)
+    sd = load_reference_checkpoint(path)[0]
     if name in PRESETS and preset_base(name) == "ThreeStrm":
         # the reference's feature-space ScoreFusion CLASS (model.py:1960-
         # 1989) is ThreeStrm with its encoder at ``fusion_temproal``
@@ -767,7 +770,7 @@ def load_pretrain_init(path: str, arch: str) -> Dict[str, torch.Tensor]:
     deit_small the trunk of a timm ``deit_small_distilled_patch16_224``
     file or of a saved ``model_distillation`` (timm's names under
     ``convnet.``, the port's deit checkpoint)."""
-    sd = load_reference_state_dict(path)
+    sd = load_reference_checkpoint(path)[0]
     if arch == "deit_small":
         if "cls_token" in sd:
             return _deit_trunk(sd, "")
@@ -957,7 +960,7 @@ def load_student_checkpoint(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
     ``classifier.*``, with DataParallel ``module.`` segments dropped). A
     trunk of another depth or MobileNetV3 variant than the configured
     backbone's raises."""
-    sd = load_reference_state_dict(path)
+    sd = load_reference_checkpoint(path)[0]
     backbone = cfg.model.backbone
     if _is_torchvision_resnet(sd):
         depth = _resnet_depth(backbone, path, "a resnet zoo checkpoint")
@@ -987,3 +990,71 @@ def load_student_checkpoint(path: str, cfg: Config) -> Dict[str, torch.Tensor]:
         _trunk_import(sd, "backbone.resnet.", backbone_geometry(backbone)[0],
                       path, f"backbone {backbone!r}")
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Export: a port checkpoint's weights as the reference's student, teacher-head
+# or MFM ``.pt`` (``litemkd_tpu/tools/torch_export.py``
+# ``export_{student,teacher,mfm}_checkpoint``). The port's state dicts are
+# already in the reference key layout, so exporting selects and renames keys.
+# ---------------------------------------------------------------------------
+
+def _strict_keys(sd: Dict[str, torch.Tensor], model: torch.nn.Module,
+                 what: str) -> None:
+    missing = set(model.state_dict()) - set(sd)
+    unexpected = set(sd) - set(model.state_dict())
+    if missing or unexpected:
+        raise ValueError(f"not the state dict of {what}: missing "
+                         f"{sorted(missing)[:4]}, unexpected "
+                         f"{sorted(unexpected)[:4]}")
+
+
+def student_export_state_dict(sd: Dict[str, torch.Tensor], cfg: Config
+                              ) -> Dict[str, torch.Tensor]:
+    """A student checkpoint's weights in ``export_student_checkpoint``'s
+    layout (every key of ``cfg``'s ``BatchedStudent``, as it is); raises
+    where ``sd`` is not that student's."""
+    from ..models import BatchedStudent
+    with torch.device("meta"):
+        _strict_keys(sd, BatchedStudent(cfg), f"{cfg.model.backbone} + "
+                     f"{cfg.model.classifier}")
+    return dict(sd)
+
+
+def teacher_export_state_dict(sd: Dict[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+    """The TCT sets of a student checkpoint's head as the released teacher
+    layout, ``bracnch.transformers.{i}.*`` (``export_teacher_checkpoint``):
+    a single-set head's ``classifier.transformers.*`` becomes set 0, a
+    multi-set head's ``classifier.transformers.{i}.*`` keep their order."""
+    head = "classifier.transformers."
+    if f"{head}k_linear.weight" in sd:
+        return {f"bracnch.transformers.0.{k[len(head):]}": v
+                for k, v in sd.items() if k.startswith(head)}
+    out = {f"bracnch.transformers.{k[len(head):]}": v
+           for k, v in sd.items()
+           if k.startswith(head) and k[len(head):].split(".")[0].isdigit()}
+    if not out:
+        raise ValueError("the checkpoint's head has no TCT "
+                         "(classifier.transformers.*) to export as a teacher")
+    return out
+
+
+def mfm_export_state_dict(sd: Dict[str, torch.Tensor], cfg: Config
+                          ) -> Dict[str, torch.Tensor]:
+    """An MFM checkpoint's weights in ``export_mfm_checkpoint``'s
+    ``ThreeTRXShiftLoopTime`` layout (every key of ``make_mfm(cfg)``, as it
+    is); raises where ``sd`` is not that teacher's."""
+    from ..train.teacher_steps import make_mfm
+    with torch.device("meta"):
+        _strict_keys(sd, make_mfm(cfg), "the MFM teacher (ThreeTRXShiftLoopTime)")
+    return dict(sd)
+
+
+def save_reference_checkpoint(sd: Dict[str, torch.Tensor], path: str,
+                              iteration: int = 0) -> None:
+    """Write ``{"iteration", "model_state_dict"}``, as the reference's
+    ``torch.save`` and the JAX package's exporters do."""
+    torch.save({"iteration": iteration,
+                "model_state_dict": {k: v.detach().cpu() for k, v in sd.items()}},
+               path)

@@ -39,7 +39,7 @@ from ..models.teacher import (ComposedFusionTeacher, DGAFusionTeacher,
 from ..models.teacher.composer import preset_base
 from ..ops.dtypes import anchor_dtype
 from ..ops.positional import bind_dropout_generator
-from ..tools.weights import load_reference_state_dict, merge_state_dict
+from ..tools.weights import load_reference_checkpoint, merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .checkpoint import CheckpointManager
 from .schedule import make_optimizer
@@ -149,7 +149,7 @@ def _expert_sets(path: str, temp_set) -> Dict[Optional[int], Dict]:
     ``classifier.transformers.*``, sets in its ``config.json``'s
     ``temp_set`` order)."""
     if str(path).endswith((".pt", ".pth")):
-        sd = load_reference_state_dict(path)
+        sd = load_reference_checkpoint(path)[0]
         n = 0
         while f"transformers.{n}.k_linear.weight" in sd:
             n += 1

@@ -45,6 +45,7 @@ def _inputs(seed, device, e, q, u, dk, w, s):
     (16, 25, 8, 1152, 5, 5, None),    # the composer's ctx head: a 16-episode step
     (4, 25, 56, 1152, 5, 5, None),    # TRX_multi/TRM's temp-set-3 chunk: U=56
     (16, 20, 28, 1152, 5, 5, None),   # the skeleton expert's 16-episode step
+    (1, 5, 28, 1152, 5, 5, None),     # a served request: one episode
     (1, 2, 20, 64, 2, 32, None),      # 640 keys: three score passes, 16-column slices
     (2, 5, 28, 64, 3, 5, 5),          # G=5: 140 rows, two row passes
     (4, 25, 28, 1152, 5, 5, 1),       # the group sizes of the sweep
@@ -641,3 +642,51 @@ def test_mobilenet_student_chunk_on_card_matches_cpu(cuda_device):
             bn.bn_sums.launches - before[1]) == (2, 0)
     assert out.keys() == {"kl", "ce", "sup"}
     assert all(torch.isfinite(v).all() for v in out.values())
+
+
+@pytest.mark.cuda
+def test_tct_op_passes_opcheck_on_card(cuda_device):
+    """``litemkd::tct_attention`` on CUDA tensors: schema, fake tensor,
+    autograd registration and AOT dispatch, with and without inputs that
+    need a gradient."""
+    args = _inputs(1, cuda_device, 2, 3, 28, 64, 5, 5)
+    for a in (args, [x.clone().requires_grad_(True) for x in args]):
+        res = torch.library.opcheck(torch.ops.litemkd.tct_attention.default, a)
+        assert set(res.values()) == {"SUCCESS"}, res
+
+
+@pytest.mark.cuda
+def test_scorer_artifact_on_card_launches_kernel_twice(cuda_device, tmp_path):
+    """A tiny scorer artifact traced on the card holds 2 TCT op nodes,
+    launches nothing while it is traced, launches the kernel twice a call
+    when it runs, and gives the eager student's logits within 1e-3 of
+    their largest magnitude (cuDNN may pick other algorithms)."""
+    from litemkd_torch.cli.test import load_student
+    from litemkd_torch.tools import aot
+    cfg = preset("tiny")
+    model = load_student(cfg, None, cuda_device)
+    path = str(tmp_path / "scorer.litemkd")
+    before = ta.tct_attention.launches
+    aot.export_serving_artifact(cfg, model, path, cuda_device, episodes=2)
+    assert ta.tct_attention.launches == before
+    assert aot.op_nodes(aot.load_program(path)[0]) == 2
+    scorer, manifest = aot.load_serving_artifact(path)
+    assert manifest["platforms"] == ["cuda"]
+    ep = cfg.episode
+    rng = np.random.default_rng(0)
+    shape = (ep.seq_len, ep.img_size, ep.img_size, 3)
+    sup = torch.from_numpy(rng.integers(0, 256, (2, ep.n_support, *shape),
+                                        dtype=np.uint8)).to(cuda_device)
+    qry = torch.from_numpy(rng.integers(0, 256, (2, ep.n_queries(False), *shape),
+                                        dtype=np.uint8)).to(cuda_device)
+    lab = torch.arange(ep.way, device=cuda_device).repeat_interleave(
+        ep.shot).repeat(2, 1)
+    for _ in range(2):
+        before = ta.tct_attention.launches
+        got = scorer(sup, lab, qry)
+        torch.cuda.synchronize()
+        assert ta.tct_attention.launches == before + 2
+    with torch.inference_mode():
+        want = aot.make_serving_fn(cfg, model)(sup, lab, qry)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * want.abs().max().item())

@@ -143,6 +143,7 @@ def test_config_json_round_trips_between_packages():
      "Camera_1", "--num_workers", "0"],
     ["--preset", "tiny", "--test_model", "teacher", "--per_task_log",
      "{dir}/tasks.jsonl", "--model_teacher", "test_teacher_TRX_2fcsup_fixed"],
+    ["--preset", "tiny", "--pallas_tct", "--wandb"],
 ])
 def test_cli_config_equals_jax(argv, tmp_path):
     """The port's eval flags build the config that the JAX package's
@@ -163,6 +164,47 @@ def test_cli_config_equals_jax(argv, tmp_path):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (targs.test_model, targs.per_task_log) == \
         (args.test_model, args.per_task_log)
+
+
+def _parsed_cfg(cli, argv):
+    import importlib
+    out = importlib.import_module(f"litemkd_torch.cli.{cli}").parse(argv)
+    return out[-1]
+
+
+@pytest.mark.parametrize("cli,extra", [
+    ("test", []), ("train", []), ("train_teacher", []), ("pretrain", []),
+    ("extract", ["--mode_extract", "mfm", "--out", "x"]),
+    ("export", ["--ckpt", "x.pt", "--out", "y.pt"])])
+def test_clis_accept_pallas_tct_and_wandb(cli, extra):
+    """Every CLI of the port parses the JAX package's ``--pallas_tct``
+    (``model.use_pallas``, as ``litemkd_tpu/cli/common.py`` maps it) and
+    ``--wandb``; without them ``use_pallas`` keeps the preset's value."""
+    argv = ["--preset", "tiny", "--device", "cpu"] + extra
+    assert _parsed_cfg(cli, argv + ["--pallas_tct", "--wandb"]).model.use_pallas
+    assert not _parsed_cfg(cli, argv).model.use_pallas
+
+
+def test_wandb_flag_without_the_package_gives_notice_and_trains(tmp_path,
+                                                                monkeypatch,
+                                                                capsys):
+    """``cli.train --wandb`` where wandb cannot be imported prints the JAX
+    package's notice on stderr and trains on; the logger keeps no sink."""
+    from litemkd_torch.cli import train as train_cli
+    from litemkd_torch.utils.logging import MetricsLogger
+    monkeypatch.setitem(sys.modules, "wandb", None)   # `import wandb` fails
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        state, _ = train_cli.main(
+            ["--preset", "tiny", "--dataset", "synthetic", "--device", "cpu",
+             "--wandb", "--pallas_tct", "-c", str(tmp_path / "run")])
+    finally:
+        torch.set_num_threads(threads)
+    err = capsys.readouterr().err
+    assert "[metrics] wandb requested but not installed; skipping" in err
+    assert state.episodes_seen > 0 and (tmp_path / "run" / "config.json").exists()
+    assert MetricsLogger(use_wandb=True)._wandb is None
 
 
 def test_cli_runs_on_cpu_without_jax():
@@ -208,7 +250,12 @@ def test_port_sources_import_no_jax():
             "litemkd_torch/ops/strm.py", "litemkd_torch/models/backbones/strm.py",
             "litemkd_torch/models/classifiers/strm.py",
             "litemkd_torch/models/classifiers/edist.py",
-            "litemkd_torch/tools/confusion.py"} <= scanned
+            "litemkd_torch/tools/confusion.py", "litemkd_torch/tools/aot.py",
+            "litemkd_torch/cli/export.py", "litemkd_torch/cli/demo.py",
+            "litemkd_torch/data/transforms.py",
+            "litemkd_torch/tools/shrink_dataset.py",
+            "litemkd_torch/tools/follow_pid.py",
+            "litemkd_torch/tools/pipeline_bench.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",
