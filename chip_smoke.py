@@ -127,12 +127,25 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    from the checkpoint (the same predictions), and ``cli.demo`` serving
    three pages from a subprocess; ``tools.pipeline_bench`` at a small size
    and ``tools.shrink_dataset`` of phase 7's tree.
+13. analysis and scale-out: ``litemkd_torch.cli.flops`` of three students
+   at full width on the card (params equal to the README's table);
+   ``cli.profile --path train --pallas_bn`` and ``--path teacher`` (the
+   MFM) on 4-episode batches, with the launch counts derived from the
+   modules, whose summaries must name the TCT and both BN kernels;
+   ``cli.figures cam`` of a frame of phase 7's tree through phase 8's
+   resnet50 pretrain checkpoint (the overlay written, its class the argmax
+   of ``backbone_predict``); one 4-episode ``cli.train --mesh_data 1``
+   step under ``torch.distributed.run`` on NCCL, whose loss must equal a
+   plain run's from the same seed; and the data-parallel step's device
+   time at one rank beside the plain step's (16 episodes on the card).
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import copy
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -2816,6 +2829,208 @@ def serving_path(label, run_root):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Analysis tools and data-parallel training (phase 13)
+# ---------------------------------------------------------------------------
+
+# params of the README's efficiency table: the JAX package's
+# count_params(variables["params"]) at each preset
+FLOPS_PARAMS = {"student_fc2sup_dist": 22_719_552, "expert_trx": 32_949_824,
+                "student_mobilenet": 16_350_000}
+# 4-episode batches (one micro-batch chunk of the flagship): the host draws
+# the synthetic clips of an episode in ~1.9 s (phase 5's CLI run)
+PHASE13_EPISODES = 4
+PROFILE_ARGV = ["--steps", "1", "--tasks_per_batch", str(PHASE13_EPISODES),
+                "--micro_batch", str(PHASE13_EPISODES), "--device", "cuda"]
+DP_ARGV = ["--preset", "student_fc2sup_dist", "--dataset", "synthetic",
+           "--pallas_bn", "--tasks_per_batch", str(PHASE13_EPISODES),
+           "--training_iterations", str(PHASE13_EPISODES), "--print_freq", "1",
+           "--device", "cuda"]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def profile_launches(cfg, steps):
+    """Kernel launches of ``steps`` student train steps of ``cfg`` (the
+    profile's warm-up and traced steps): per chunk the student's TCT calls
+    and the frozen teacher's one, and one of each BN kernel per BN-kernel
+    BatchNorm of the trunk."""
+    from litemkd_torch.models import BatchedStudent
+    from litemkd_torch.ops.batch_norm import BatchNorm
+    with torch.device("meta"):
+        trunk = BatchedStudent(cfg).backbone.resnet
+    n_bn = sum(isinstance(m, BatchNorm) and m.pallas_bn for m in trunk.modules())
+    chunks = steps * cfg.train.tasks_per_batch // (cfg.train.micro_batch
+                                                    or cfg.train.tasks_per_batch)
+    return dict(tct_attention=(student_tct_calls(cfg) + 1) * chunks,
+                bn_sums=n_bn * chunks, bn_bwd_sums=n_bn * chunks)
+
+
+def _profile(label, argv, want, names, out):
+    """``cli.profile`` with ``argv``: its launches must be ``want`` and its
+    summary must name each op of ``names``; returns the launches."""
+    from litemkd_torch.cli import profile as cli_profile
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        buckets = cli_profile.main(argv + PROFILE_ARGV + ["--out", str(out)])
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    lines = [line.strip() for line in buf.getvalue().strip().splitlines()]
+    at = next(i for i, line in enumerate(lines) if line.startswith("device op time"))
+    ops = [line for line in lines[at + 1:] if "litemkd::" in line]
+    log(f"[analysis] cli.profile {' '.join(argv)}: {secs:.2f} s, launches "
+        f"{counts}; summary: " + " | ".join(lines[at:at + 4] + ops[:3]))
+    if counts != want:
+        raise AssertionError(f"cli.profile launches {counts} != {want}")
+    for name in names:
+        if not any(k.startswith(name + " ") for k in buckets):
+            raise AssertionError(f"the profile summary names no {name} kernel: "
+                                 f"{sorted(buckets)[:20]}")
+    if not list(out.glob("*.pt.trace.json")):
+        raise AssertionError(f"cli.profile wrote no trace under {out}")
+    return counts
+
+
+def _loss_of(ckdir):
+    (step,) = [r for r in _train_records(ckdir) if "task_loss" in r]
+    return step["task_loss"]
+
+
+def dp_step_time(label):
+    """The data-parallel train step at one rank (a NCCL group of one;
+    gradients and metrics all-reduced, the running statistics snapshot)
+    beside the plain step, cuDNN BatchNorm, on one 16-episode batch on the
+    card: CUDA events over 3 steps after one warm-up, in one process."""
+    import torch.distributed as dist
+    from litemkd_torch.parallel import DataParallel
+    cfg = preset("student_fc2sup_dist")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        dp = DataParallel(0, 1, torch.device("cuda", 0))
+        batch = device_batch(cfg, TRAIN_EPISODES)
+        times = {}
+        for name, group in (("plain", None), ("data-parallel", dp)):
+            state = create_train_state(cfg, "cuda")
+            step = make_train_step(cfg, group)
+            times[name] = cuda_ms(lambda: step(state, batch), 3, warmup=1)
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"[dp] device step at one rank: data-parallel {times['data-parallel']:.3f} ms, "
+        f"plain {times['plain']:.3f} ms ({TRAIN_EPISODES} episodes, micro-batch "
+        f"{cfg.train.micro_batch}, cuDNN BatchNorm); {label}")
+    return times
+
+
+def analysis_path(label, run_root):
+    """Phase 13 on phase 7's tree and phase 8's pretrain checkpoint:
+    ``cli.flops``, ``cli.profile``, ``cli.figures cam``, and ``cli.train``
+    under ``torch.distributed.run`` against a plain run. Returns the
+    phase's launch counts (those of its two profiles)."""
+    from litemkd_torch.cli import figures as cli_figures
+    from litemkd_torch.cli import flops as cli_flops
+    from litemkd_torch.utils.saliency import backbone_predict
+    t_phase = time.perf_counter()
+
+    # (a) params and forward FLOPs at full width, counted under FakeTensorMode
+    zero_counts()
+    for name, want in FLOPS_PARAMS.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = cli_flops.main(["--preset", name, "--device", "cuda"])
+        log(f"[analysis] cli.flops --preset {name} on the card: {r['params']} params, "
+            f"{r['gflops']:.3f} GFLOPs/episode forward (FlopCounterMode), "
+            f"{time.perf_counter() - t0:.2f} s")
+        if r["params"] != want or not r["gflops"] > 0:
+            raise AssertionError(f"cli.flops {name}: {r}, expected {want} params")
+    if read_counts() != dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0):
+        raise AssertionError(f"cli.flops launched kernels: {read_counts()}")
+
+    # (b) profiles of the student's BN-kernel step and of the MFM's step
+    base = preset("student_fc2sup_dist")
+    cfg = base.replace(model=dataclasses.replace(base.model, pallas_bn=True),
+                       train=dataclasses.replace(base.train,
+                                                 tasks_per_batch=PHASE13_EPISODES,
+                                                 micro_batch=PHASE13_EPISODES))
+    total = _profile(label, ["--preset", "student_fc2sup_dist", "--path", "train",
+                             "--pallas_bn"], profile_launches(cfg, 2),
+                     ("litemkd::tct_attention", "litemkd::bn_sums",
+                      "litemkd::bn_bwd_sums"), run_root / "trace_train")
+    mfm = _profile(label, ["--preset", "mfm_teacher", "--path", "teacher"],
+                   dict(tct_attention=2, bn_sums=0, bn_bwd_sums=0),
+                   ("litemkd::tct_attention",), run_root / "trace_teacher")
+    total = {k: total[k] + mfm[k] for k in total}
+    torch.cuda.empty_cache()
+
+    # (c) Grad-CAM of a frame of phase 7's tree through phase 8's checkpoint
+    frame = sorted((run_root / "frames").rglob("*.jpg"))[0]
+    out = run_root / "cam.jpg"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_figures.main(["cam", "--image", str(frame), "--ckpt",
+                          str(run_root / "pretrain"), "--arch", "resnet50",
+                          "--out", str(out), "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    cls = int(buf.getvalue().split("Grad-CAM class ")[1].split()[0])
+    net = cli_figures.load_cam_model(str(run_root / "pretrain"), "resnet50", None,
+                                     "cuda")
+    rgb = np.asarray(Image.open(frame).convert("RGB").resize((224, 224)),
+                     dtype=np.float32) / 255.0
+    logits = backbone_predict(net, rgb[None])
+    with Image.open(out) as im:
+        size = im.size
+    log(f"[analysis] cli.figures cam of {frame.relative_to(run_root)} through "
+        f"{net.fc.out_features}-class resnet50 pretrain checkpoint: class {cls} "
+        f"(logit {logits[0, cls]:.4f}), overlay {out.name} {size}, {secs:.2f} s")
+    if cls != int(np.argmax(logits[0])) or size != (224, 224):
+        raise AssertionError(f"cam: class {cls} vs argmax {np.argmax(logits[0])}, "
+                             f"overlay {size}")
+    del net
+    torch.cuda.empty_cache()
+
+    # (d) one data-parallel step under torch.distributed.run (NCCL, one
+    # rank) against a plain run of the same seed
+    repo = Path(__file__).resolve().parent
+    dp_dir, plain_dir = run_root / "dp_run", run_root / "plain_run"
+    t0 = time.perf_counter()
+    with open(run_root / "torchrun.log", "w") as f:
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+             "--master_addr", "localhost", "--master_port", str(_free_port()),
+             "-m", "litemkd_torch.cli.train"] + DP_ARGV
+            + ["--mesh_data", "1", "-c", str(dp_dir)],
+            cwd=repo, stdout=f, stderr=subprocess.STDOUT, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(repo)] + os.environ.get("PYTHONPATH", "").split(os.pathsep))))
+    dp_secs = time.perf_counter() - t0
+    text = (run_root / "torchrun.log").read_text()
+    if r.returncode != 0 or "data-parallel over 1 ranks" not in text:
+        raise AssertionError(f"torch.distributed.run cli.train exit {r.returncode}: "
+                             f"{text[-3000:]}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_train.main(DP_ARGV + ["-c", str(plain_dir)])
+    got, want = _loss_of(dp_dir), _loss_of(plain_dir)
+    log(f"[dp] cli.train --mesh_data 1 under torch.distributed.run (NCCL, 1 rank): "
+        f"task_loss {got:.6f} vs {want:.6f} in a plain run of the same seed; "
+        f"{dp_secs:.2f} s of command")
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError(f"data-parallel loss {got} != plain {want}")
+    dp_step_time(label)
+    log(f"[analysis] phase 13 launches {total}; took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2907,6 +3122,8 @@ def main():
         # 12. serving: exports, artifacts and the demo on the checkpoints
         # of phases 6 and 7
         serve_counts = serving_path(smi.splitlines()[0], run_root)
+        # 13. analysis tools and data-parallel training
+        analysis_counts = analysis_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -2945,13 +3162,15 @@ def main():
                        + expert_counts["tct_attention"] + zoo_counts["tct_attention"]
                        + student_zoo_counts["tct_attention"]
                        + fusion_counts["tct_attention"]
-                       + serve_counts["tct_attention"]),
+                       + serve_counts["tct_attention"]
+                       + analysis_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=(counts["bn_sums"] + video_counts["bn_sums"]
                        + expert_counts["bn_sums"] + zoo_counts["bn_sums"]
-                       + student_zoo_counts["bn_sums"] + fusion_counts["bn_sums"]),
+                       + student_zoo_counts["bn_sums"] + fusion_counts["bn_sums"]
+                       + analysis_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
@@ -2959,7 +3178,8 @@ def main():
              launches=(counts["bn_bwd_sums"] + video_counts["bn_bwd_sums"]
                        + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]
                        + student_zoo_counts["bn_bwd_sums"]
-                       + fusion_counts["bn_bwd_sums"]),
+                       + fusion_counts["bn_bwd_sums"]
+                       + analysis_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -3,8 +3,9 @@ MFM-teacher and extraction paths read, copied from
 ``litemkd_tpu/cli/common.py:67-378`` and the JAX package's
 ``train_teacher``/``extract``/``pretrain`` CLIs (same names, same mapping
 onto the typed Config), plus ``--device``, the sampler, fixed-episode
-files and the device choice. Flags of paths the port does not have yet
-(meshes) come with those paths. ``--pallas_tct`` sets ``model.use_pallas``
+files and the device choice. ``--mesh_data``/``--mesh_model`` set
+``cfg.mesh``, the layout of the ranks under ``torchrun``
+(:func:`setup_data_parallel`). ``--pallas_tct`` sets ``model.use_pallas``
 and nothing else (a CUDA tensor always launches the TCT kernel);
 ``--wandb`` reaches the training CLIs' :class:`MetricsLogger`.
 """
@@ -18,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..config import Config, preset
+from ..config import Config, MeshConfig, preset
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -100,6 +101,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--wandb", action="store_true",
                    help="mirror metrics to wandb (reference trainwandb.py; "
                         "skipped with a notice if the package is missing)")
+    # scale-out: the ranks' layout under torchrun (JAX: the device mesh)
+    p.add_argument("--mesh_data", type=int, default=None)
+    p.add_argument("--mesh_model", type=int, default=None)
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -282,6 +286,10 @@ def build_config(args: argparse.Namespace,
         query_view=pick(dc.query_view, args.view),
         fixed_view=pick(dc.fixed_view, args.fixed_view),
         view_root=pick(dc.view_root, args.view_root)))
+    if args.mesh_data is not None or args.mesh_model is not None:
+        cfg = cfg.replace(mesh=MeshConfig(
+            data=args.mesh_data if args.mesh_data is not None else -1,
+            model=args.mesh_model if args.mesh_model is not None else 1))
     if args.mode:
         cfg = cfg.replace(mode=args.mode)
     t = cfg.train
@@ -325,6 +333,25 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; cpu runs "
                         "every kernel's plain PyTorch version)")
+
+
+def setup_data_parallel(cfg: Config, device=None):
+    """``(dp, device)`` of this process: outside ``torchrun`` (None, the
+    resolved device), and the mesh is ignored, as the JAX package ignores
+    it on one device. Under ``torchrun`` this rank joins the process group
+    (:func:`~litemkd_torch.parallel.init_distributed`; on ``cuda`` the card
+    of its ``LOCAL_RANK``) and returns its
+    :class:`~litemkd_torch.parallel.DataParallel`. Over more than one rank
+    ``cfg.mesh`` must lay the ranks out (JAX's ``make_mesh`` rules) with a
+    ``model`` axis of 1: the port runs the ``data`` axis alone."""
+    from ..parallel import check_data_parallel, init_distributed, make_mesh
+    device = resolve_device(device)
+    dp = init_distributed(device)
+    if dp is None:
+        return None, device
+    if dp.world > 1:
+        check_data_parallel(make_mesh(cfg.mesh, dp.world))
+    return dp, dp.device
 
 
 def resolve_device(device=None) -> torch.device:

@@ -24,7 +24,13 @@ in training). ``--fixed_episode_file`` replays the episodes of a file that
 (``tools/confusion.py`` reads them). Prints mean accuracy ×100 with the
 196·std/√n confidence interval. Runs on cuda unless ``--device`` says
 otherwise, with TF32 off in matrix products and convolutions (the bf16
-trunk is unaffected).
+trunk is unaffected). Under ``torchrun`` the eval is sharded over the ranks
+(each evaluates its slice of every chunk; the results are gathered in task
+order, and ``n_tasks`` is rounded to whole chunks), with the summary and
+``--per_task_log`` of one process:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m litemkd_torch.cli.test -m DIR/checkpoint_N.pt --mesh_data 2
 """
 from __future__ import annotations
 
@@ -38,12 +44,13 @@ import torch
 from ..config import Config
 from ..models import BatchedStudent, BatchedTeacher, init_student_
 from ..ops.dtypes import set_fp32_math
+from ..parallel import shutdown
 from ..tools.weights import (load_reference_checkpoint,
                              teacher_state_dict_from_reference)
 from ..train import make_eval_step, make_teacher_eval_step, run_eval
 from .common import (add_common_args, add_device_arg, add_test_args,
                      build_config, build_sampler, load_fixed_specs,
-                     load_saved_config, resolve_device)
+                     load_saved_config, resolve_device, setup_data_parallel)
 
 
 def load_student(cfg: Config, path: Optional[str] = None,
@@ -90,7 +97,8 @@ def parse(argv=None) -> Tuple[argparse.Namespace, Config]:
 
 def main(argv=None):
     args, cfg = parse(argv)
-    device = resolve_device(args.device)
+    dp, device = setup_data_parallel(cfg, args.device)
+    writer = dp is None or dp.rank == 0
     set_fp32_math()
     teacher_mode = args.test_model == "teacher"
     sampler = build_sampler(cfg, need_teacher=teacher_mode)
@@ -101,31 +109,37 @@ def main(argv=None):
     else:
         model = load_student(cfg, args.test_model_path, device)
         eval_step = make_eval_step(cfg, with_preds=with_preds)
-    if args.test_model_path:
+    if args.test_model_path and writer:
         print(f"loaded torch checkpoint {args.test_model_path}")
     specs = load_fixed_specs(cfg, sampler)
     task_log = log_file = None
     if with_preds:
-        log_file = open(args.per_task_log, "w")
+        # every rank sees every task (run_eval gathers them); rank 0 writes
+        log_file = open(args.per_task_log, "w") if writer else None
 
         def task_log(record):
-            log_file.write(json.dumps(record) + "\n")
+            if log_file is not None:
+                log_file.write(json.dumps(record) + "\n")
 
     try:
         summary = run_eval(
             cfg, model, sampler,
             n_tasks=len(specs) if specs else cfg.train.num_test_tasks,
             seed=cfg.train.seed, eval_step=eval_step, device=device,
-            specs=specs, task_log=task_log)
+            specs=specs, task_log=task_log, dp=dp)
     finally:
         if log_file is not None:
             log_file.close()
-    if with_preds:
-        print(f"per-task records written to {args.per_task_log}")
-    print(f"{cfg.data.dataset}: {summary['accuracy']:.2f} ± "
-          f"{summary['confidence']:.2f} over {summary['n_tasks']} tasks")
+    if writer:
+        if with_preds:
+            print(f"per-task records written to {args.per_task_log}")
+        print(f"{cfg.data.dataset}: {summary['accuracy']:.2f} ± "
+              f"{summary['confidence']:.2f} over {summary['n_tasks']} tasks")
     return summary
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -27,6 +27,14 @@ init); otherwise both get random weights from the seed. Checkpoints and
 
 (as in the JAX package the CLI reads a teacher tree and runs the frozen
 teacher head, whose logits ``TRXLoss`` ignores).
+
+Data-parallel over several processes (one per card; gloo on the CPU), each
+rank drawing its share of every batch (``litemkd_torch.parallel``); rank 0
+writes the checkpoints, ``config.json`` and the logs:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m litemkd_torch.cli.train --preset student_fc2sup_dist \
+        --mesh_data 4 ... -c DIR
 """
 from __future__ import annotations
 
@@ -35,13 +43,14 @@ import json
 
 from ..models import BatchedTeacher
 from ..ops.dtypes import set_fp32_math
+from ..parallel import shutdown
 from ..tools.weights import (load_reference_checkpoint, load_student_checkpoint,
                              teacher_state_dict_from_reference)
 from ..train import run_training, verify_checkpoint_dir
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_train_args,
-                     build_config, build_sampler, resolve_device,
-                     save_run_config)
+                     build_config, build_sampler, save_run_config,
+                     setup_data_parallel)
 
 
 def parse(argv=None):
@@ -61,17 +70,25 @@ def parse(argv=None):
 
 def main(argv=None):
     args, cfg = parse(argv)
-    device = resolve_device(args.device)
+    dp, device = setup_data_parallel(cfg, args.device)
+    writer = dp is None or dp.rank == 0
     set_fp32_math()
-    if cfg.train.checkpoint_dir:
+    if cfg.train.checkpoint_dir and writer:
         verify_checkpoint_dir(cfg.train.checkpoint_dir,
                               cfg.train.resume_from_checkpoint)
     logger = MetricsLogger(
-        log_dir=None if args.debug else (cfg.train.checkpoint_dir or "log"),
+        log_dir=None if args.debug or not writer
+        else (cfg.train.checkpoint_dir or "log"),
         run_name=cfg.mode, print_freq=cfg.train.print_freq,
-        use_wandb=args.wandb)
+        use_wandb=args.wandb and writer, quiet=not writer)
     logger.info(f"config:\n{cfg.to_json()}")
-    save_run_config(cfg)
+    if dp is not None:
+        logger.info(f"data-parallel over {dp.world} ranks "
+                    f"({cfg.train.tasks_per_batch // dp.world} episodes each)")
+    if writer:
+        save_run_config(cfg)
+    if dp is not None:
+        dp.barrier()    # the run directory exists before any rank reads it
     sampler = build_sampler(cfg, need_teacher=True)
 
     teacher_sd = student_sd = None
@@ -86,7 +103,7 @@ def main(argv=None):
 
     state, history = run_training(cfg, sampler, logger, device=device,
                                   teacher_state_dict=teacher_sd,
-                                  student_state_dict=student_sd)
+                                  student_state_dict=student_sd, dp=dp)
     if history:
         logger.info("eval history: " + json.dumps(history))
     logger.close()
@@ -94,4 +111,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

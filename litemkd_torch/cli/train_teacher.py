@@ -23,7 +23,9 @@ port, whose newest checkpoint is restored whole; training then continues
 from it, or ``--test_only`` evaluates it (replaying
 ``--fixed_episode_file`` where one is given; pass the run's ``--fusion``
 again). Runs on cuda unless ``--device`` says otherwise, in fp32 with TF32
-off. Checkpoints and ``config.json`` go to ``-c``.
+off. Checkpoints and ``config.json`` go to ``-c``. Under ``torchrun`` the
+training is data-parallel (each rank draws its share of every batch, the
+gradients are summed over the ranks; rank 0 writes) and the eval sharded.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 
 from ..data.synthetic import SyntheticEpisodeSource
 from ..ops.dtypes import set_fp32_math
+from ..parallel import shutdown
 from ..tools.weights import load_reference_fusion_state_dict
 from ..train import (CheckpointManager, EpisodeBatch, create_mfm_train_state,
                      make_mfm_eval_step, make_mfm_train_step, run_eval,
@@ -43,8 +46,8 @@ from ..train.teacher_steps import load_tsf_branches
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_fusion_args,
                      add_train_args, apply_fusion_args, build_config,
-                     load_fixed_specs, load_saved_config, resolve_device,
-                     save_run_config)
+                     load_fixed_specs, load_saved_config, save_run_config,
+                     setup_data_parallel)
 
 
 class SyntheticMultiModalSource:
@@ -139,9 +142,10 @@ def main(argv=None):
     bad = [s for s in args.branch_ckpt or () if "=" not in s]
     if bad:
         p.error(f"--branch_ckpt expects MODALITY=CKPT_DIR, got {bad}")
-    device = resolve_device(args.device)
+    dp, device = setup_data_parallel(cfg, args.device)
+    writer = dp is None or dp.rank == 0
     set_fp32_math()
-    if cfg.train.checkpoint_dir:
+    if cfg.train.checkpoint_dir and writer:
         verify_checkpoint_dir(cfg.train.checkpoint_dir,
                               cfg.train.resume_from_checkpoint)
     path = args.test_model_path
@@ -155,12 +159,16 @@ def main(argv=None):
         state.model.load_state_dict(
             load_reference_fusion_state_dict(path, cfg, args.fusion),
             strict=True)
-    log_dir = None if args.debug or args.test_only else (
+    log_dir = None if args.debug or args.test_only or not writer else (
         cfg.train.checkpoint_dir or "log")
     logger = MetricsLogger(log_dir=log_dir, run_name=args.fusion,
-                           print_freq=cfg.train.print_freq, use_wandb=args.wandb)
+                           print_freq=cfg.train.print_freq,
+                           use_wandb=args.wandb and writer, quiet=not writer)
     logger.info(f"config:\n{cfg.to_json()}")
-    save_run_config(cfg)
+    if writer:
+        save_run_config(cfg)
+    if dp is not None:
+        dp.barrier()    # the run directory exists before any rank reads it
     sampler = build_mm_sampler(cfg, args.feature_root)
     if args.branch_ckpt:
         logger.info(f"grafted TSF branches from {sorted(pairs)}")
@@ -176,14 +184,14 @@ def main(argv=None):
         s = run_eval(cfg, state.model.eval(), sampler,
                      n_tasks=len(specs) if specs else cfg.train.num_test_tasks,
                      eval_step=eval_step, seed=cfg.train.seed, device=device,
-                     specs=specs)
-        print(f"{cfg.data.dataset}: {s['accuracy']:.2f} ± "
-              f"{s['confidence']:.2f} over {s['n_tasks']} tasks")
+                     specs=specs, dp=dp)
+        logger.info(f"{cfg.data.dataset}: {s['accuracy']:.2f} ± "
+                    f"{s['confidence']:.2f} over {s['n_tasks']} tasks")
         logger.close()
         return s
 
-    history = train_loop(cfg, state, sampler, make_mfm_train_step(cfg),
-                         eval_step, logger, device=device)
+    history = train_loop(cfg, state, sampler, make_mfm_train_step(cfg, dp),
+                         eval_step, logger, device=device, dp=dp)
     if history:
         logger.info("eval history: " + json.dumps(history))
     logger.close()
@@ -191,4 +199,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

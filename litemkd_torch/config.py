@@ -132,8 +132,10 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the JAX package (data × model axes); kept so
-    configs round-trip between the packages. The port runs on one device."""
+    """Device-mesh layout of the JAX package (data × model axes): in the
+    port, the layout of the ranks under ``torchrun``
+    (:func:`litemkd_torch.parallel.make_mesh`), of which the ``data`` axis
+    is ported."""
 
     data: int = -1    # -1: all remaining devices on the data axis
     model: int = 1    # tensor-parallel width for the wide projections

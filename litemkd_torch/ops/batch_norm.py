@@ -27,14 +27,20 @@ x is touched. In eager mode that is still a few passes over x: forward an
 fp32 copy of x, the scaled product and the cast back to x's dtype (two fp32
 temporaries of R·C floats at a bf16 trunk, 2 × 5.1 GB at the flagship stem);
 backward three passes to build dx. Fusing them is later work.
+
+Data-parallel training over several ranks (:func:`synced_moments`) sums the
+kernels' per-channel outputs over the ranks before they are used, so one
+BatchNorm batch may span every rank's rows.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -214,9 +220,11 @@ bn_bwd_sums.launches = 0
 
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, weight, bias, eps):
-        r = x2.shape[0]
+    def forward(ctx, x2, weight, bias, eps, world):
+        r = x2.shape[0] * world
         sums = bn_sums(x2)
+        if world > 1:
+            dist.all_reduce(sums)
         mean = sums[0] / r
         var = torch.clamp_min(sums[1] / r - mean * mean, 0.0)  # E[x²]−E[x]²
         inv = torch.rsqrt(var + eps)
@@ -224,15 +232,22 @@ class _BatchNormTrain(torch.autograd.Function):
         shift = bias.to(torch.float32) - mean * scale
         y = (x2.to(torch.float32) * scale).add_(shift).to(x2.dtype)
         ctx.save_for_backward(x2, weight, mean, inv)
+        ctx.world = world
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x2, weight, mean, inv = ctx.saved_tensors
-        r = x2.shape[0]
+        r = x2.shape[0] * ctx.world
         gy = gy.contiguous()
         sums = bn_bwd_sums(gy, x2, mean, inv)
+        # γ and β get this rank's share (the ranks' gradients are summed
+        # afterwards); dx needs the sums over every rank's rows
+        local = sums
+        if ctx.world > 1:
+            sums = sums.clone()
+            dist.all_reduce(sums)
         s_dy, s_dyxh = sums[0], sums[1]
         # dx = γσ⁻¹(dy − Σdy/R − x̂·Σdy·x̂/R) = a·dy + b·x + c per channel
         a = weight.to(torch.float32) * inv
@@ -240,16 +255,40 @@ class _BatchNormTrain(torch.autograd.Function):
         c = -a * s_dy / r - b * mean
         dx = (gy.to(torch.float32) * a).add_(x2.to(torch.float32) * b)
         dx = dx.add_(c).to(x2.dtype)
-        return (dx, s_dyxh.to(weight.dtype), s_dy.to(weight.dtype), None)
+        return (dx, local[1].to(weight.dtype), local[0].to(weight.dtype),
+                None, None)
 
 
 def batch_norm_train(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     eps: float = 1e-5
+                     eps: float = 1e-5, *, world: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode BN of a channels-last (R, C) activation → ``(y, batch
     mean, biased batch var)``. y has x's dtype; mean and var are fp32 and
-    carry no gradient (they feed the running-stat update)."""
-    return _BatchNormTrain.apply(x2, weight, bias, eps)
+    carry no gradient (they feed the running-stat update). The moments come
+    from :func:`bn_sums` / :func:`bn_bwd_sums` (the kernels on the card).
+
+    ``world`` > 1: the batch is the rows of every rank of the default
+    process group (the same R on each), so both moment sums are summed over
+    the ranks before use (a synchronised BatchNorm); γ and β get this
+    rank's share of their gradient."""
+    return _BatchNormTrain.apply(x2, weight, bias, eps, world)
+
+
+@contextlib.contextmanager
+def synced_moments(model: nn.Module, world: int):
+    """Within this block every :class:`BatchNorm` of ``model`` that takes
+    batch moments in training takes them over ``world`` ranks
+    (:func:`batch_norm_train` with ``world``); 1 leaves them local. The
+    data-parallel train step enters it where one micro-batch chunk spans
+    every rank, forward and backward both."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.sync_world = world
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync_world = 1
 
 
 def channels_last_rows(x: torch.Tensor) -> torch.Tensor:
@@ -271,6 +310,12 @@ class BatchNorm(nn.BatchNorm2d):
       :func:`bn_bwd_sums` through :func:`batch_norm_train`; otherwise
       ``F.batch_norm`` (cuDNN on the card).
     - ``freeze_bn``: training uses the running statistics and updates none.
+    - ``sync_world`` above 1 (set by :func:`synced_moments`): the training
+      moments are those of every rank's rows, through
+      :func:`batch_norm_train` and so the BN-moment kernels on the card
+      whether or not ``pallas_bn`` is set (cuDNN's BatchNorm cannot sum
+      over the ranks), so the running statistics update alike on every
+      rank.
     - Running variance: updated with the **biased** batch variance on both
       paths, as flax and ``PallasBatchNorm`` do (PARITY.md:123-124). torch
       updates with the unbiased one; on the ``F.batch_norm`` path the
@@ -290,6 +335,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.pallas_bn = pallas_bn
         self.freeze_bn = freeze_bn
         self.recomputing = False
+        self.sync_world = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.freeze_bn:
@@ -299,10 +345,14 @@ class BatchNorm(nn.BatchNorm2d):
         if update:
             self.num_batches_tracked.add_(1)
         m = self.momentum
-        if self.pallas_bn:
+        if self.pallas_bn or self.sync_world > 1:
             n, c, h, w = x.shape
-            y, mean, var = batch_norm_train(channels_last_rows(x), self.weight,
-                                            self.bias, self.eps)
+            # the synced path without pallas_bn takes any memory format: the
+            # rows are a view in channels-last memory, else a copy
+            rows = (channels_last_rows(x) if self.pallas_bn
+                    else x.permute(0, 2, 3, 1).reshape(n * h * w, c))
+            y, mean, var = batch_norm_train(rows, self.weight, self.bias,
+                                            self.eps, world=self.sync_world)
             if update:
                 with torch.no_grad():
                     self.running_mean.mul_(1 - m).add_(mean, alpha=m)

@@ -1,5 +1,6 @@
-"""Training and evaluation drivers on one device (port of ``run_eval`` and
-``run_training``, ``litemkd_tpu/train/loop.py:25-305``).
+"""Training and evaluation drivers, on one device or as one rank of a
+data-parallel run (port of ``run_eval`` and ``run_training``,
+``litemkd_tpu/train/loop.py:25-305``).
 
 Eval: chunks are ``batch_size`` episodes plus at most one remainder chunk,
 drawn in chunk order from one ``np.random.default_rng(seed)``, so the port
@@ -24,6 +25,8 @@ import torch
 
 from ..config import Config
 from ..data.prefetch import DeferredHostSync, Prefetcher
+from ..parallel.multihost import (DataParallel, host_rng, local_episode_count,
+                                  shard_batch)
 from ..utils.logging import MetricsLogger
 from ..utils.metrics import TestAccuracies, real_class_preds
 from .checkpoint import CheckpointManager
@@ -58,7 +61,8 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
              n_tasks: Optional[int] = None, batch_size: int = 8, seed: int = 0,
              eval_step: Optional[Callable] = None,
              device: Optional[torch.device] = None, specs=None,
-             task_log: Optional[Callable[[dict], None]] = None) -> dict:
+             task_log: Optional[Callable[[dict], None]] = None,
+             dp: Optional[DataParallel] = None) -> dict:
     """Episodic evaluation: mean accuracy ×100 with the 196·std/√n CI.
 
     ``model`` is an eval-mode ``BatchedStudent``, a ``BatchedTeacher`` with
@@ -72,11 +76,28 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
     ``{task, accuracy, classes, real_labels, real_preds}``: the reference's
     per-task analysis stream (``test.py:232``, ``utils.py:123-127``). It
     needs a sampler that returns episode metadata and an ``eval_step``
-    built with ``with_preds`` (the default step is)."""
+    built with ``with_preds`` (the default step is).
+
+    With ``dp`` over more than one rank every rank draws each chunk from
+    the same stream and evaluates its equal slice of it; the accuracies
+    (and predictions) are gathered to every rank in task order, so the
+    summary is a one-process eval's and ``task_log`` sees every task on
+    every rank. Chunks must then divide over the ranks: as the JAX
+    package's multi-process eval does, ``batch_size`` is rounded down to a
+    multiple of the world size and ``n_tasks`` to whole chunks, loudly."""
     n_tasks = n_tasks or cfg.train.num_test_tasks
     eval_step = eval_step or make_eval_step(cfg, with_preds=task_log is not None)
     device = device or next(model.parameters()).device
     rng = np.random.default_rng(seed)
+    world = dp.world if dp is not None else 1
+    if world > 1:
+        batch_size = max(batch_size // world, 1) * world
+        if n_tasks % batch_size:
+            rounded = max(batch_size, n_tasks - n_tasks % batch_size)
+            if dp.rank == 0:
+                print(f"[eval] {world} ranks: rounding n_tasks {n_tasks} → "
+                      f"{rounded} (chunks of {batch_size} over {world} ranks)")
+            n_tasks = rounded
     sizes = [batch_size] * (n_tasks // batch_size)
     if n_tasks % batch_size:
         sizes.append(n_tasks % batch_size)
@@ -87,10 +108,11 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
         kw = {} if specs is None else {
             "specs": specs[offsets[i]:offsets[i] + sizes[i]]}
         if task_log is None:
-            return sampler.sample_batch(rng, sizes[i], train=False, **kw)
-        batch, metas[i] = sampler.sample_batch(rng, sizes[i], train=False,
-                                               return_meta=True, **kw)
-        return batch
+            batch = sampler.sample_batch(rng, sizes[i], train=False, **kw)
+        else:
+            batch, metas[i] = sampler.sample_batch(rng, sizes[i], train=False,
+                                                   return_meta=True, **kw)
+        return batch if world == 1 else shard_batch(batch, dp.rank, world)
 
     acc = TestAccuracies()
 
@@ -113,7 +135,11 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
     deferred = DeferredHostSync(absorb)
     for i, batch in enumerate(Prefetcher(produce, len(sizes),
                                          transfer=lambda b: to_device(b, device))):
-        deferred.push(i, eval_step(model, batch))
+        out = eval_step(model, batch)
+        if world > 1:
+            out = (tuple(dp.gather(t) for t in out) if task_log is not None
+                   else dp.gather(out))
+        deferred.push(i, out)
     deferred.flush()
     return acc.summary()
 
@@ -121,7 +147,8 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
 def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
                  *, device=None, teacher_state_dict: Optional[Dict] = None,
                  student_state_dict: Optional[Dict] = None,
-                 eval_sampler=None) -> Tuple[TrainState, List[dict]]:
+                 eval_sampler=None, dp: Optional[DataParallel] = None
+                 ) -> Tuple[TrainState, List[dict]]:
     """Student training for ``cfg.train.training_iterations`` episodes in
     batches of ``tasks_per_batch``; returns ``(state, eval_history)``.
 
@@ -135,22 +162,24 @@ def run_training(cfg: Config, sampler, logger: Optional[MetricsLogger] = None,
     ``save_freq`` episodes and at the end, and ``resume_from_checkpoint``
     continues from the newest one. At each of ``test_iters`` the student is
     evaluated (eval mode, seed 0, ``num_test_tasks`` episodes) through
-    :func:`run_eval`. ``device`` defaults to cuda."""
+    :func:`run_eval`. ``device`` defaults to cuda. With ``dp`` the run is
+    this rank's part of a data-parallel run (:func:`train_loop`)."""
     device = torch.device(device or "cuda")
     state = create_train_state(cfg, device,
                                student_state_dict=student_state_dict,
                                teacher_state_dict=teacher_state_dict,
                                episodes_per_step=cfg.train.tasks_per_batch,
                                with_teacher=sampler.with_teacher_feats)
-    history = train_loop(cfg, state, sampler, make_train_step(cfg),
+    history = train_loop(cfg, state, sampler, make_train_step(cfg, dp),
                          make_eval_step(cfg), logger, device=device,
-                         eval_sampler=eval_sampler)
+                         eval_sampler=eval_sampler, dp=dp)
     return state, history
 
 
 def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
                eval_step: Callable, logger: Optional[MetricsLogger] = None, *,
-               device, eval_sampler=None) -> List[dict]:
+               device, eval_sampler=None,
+               dp: Optional[DataParallel] = None) -> List[dict]:
     """The training loop that the student and the MFM teacher share:
     ``train_step(state, batch)`` on batches of ``tasks_per_batch`` episodes
     until ``cfg.train.training_iterations`` episodes, evaluation at each of
@@ -158,7 +187,15 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     seed 0, ``num_test_tasks`` episodes), and checkpoints (every
     ``save_freq`` episodes and at the end) when ``cfg.train.checkpoint_dir``
     is set; with ``resume_from_checkpoint`` the newest one is restored into
-    ``state`` first. Returns the eval history."""
+    ``state`` first. Returns the eval history.
+
+    With ``dp`` (a rank of a process group, ``train_step`` built with it)
+    and more than one rank, rank r draws its ``tasks_per_batch / world``
+    episodes of update i from :func:`~litemkd_torch.parallel.host_rng`
+    ``(seed, r, start_step + i)``, the JAX package's multi-process stream;
+    evaluation is sharded (:func:`run_eval`); every rank restores a
+    checkpoint and rank 0 alone writes them. At one rank the stream is the
+    one-process stream, so a run equals a plain one."""
     logger = logger or MetricsLogger(print_freq=cfg.train.print_freq)
     eval_sampler = eval_sampler or sampler
     e_per_step = cfg.train.tasks_per_batch
@@ -176,7 +213,14 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     eval_history: List[dict] = []
     start_step = state.step
 
+    world = dp.world if dp is not None else 1
+    writer = dp is None or dp.rank == 0
+
     def produce(i: int) -> EpisodeBatch:
+        if world > 1:
+            return sampler.sample_batch(
+                host_rng(cfg.train.seed, dp.rank, start_step + i),
+                local_episode_count(e_per_step, world), train=True)
         return sampler.sample_batch(
             np.random.default_rng((cfg.train.seed, start_step + i)),
             e_per_step, train=True)
@@ -190,13 +234,14 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
 
         if ckpt and state.step % save_every == 0:
             deferred.flush()
-            ckpt.save(state)
+            if writer:
+                ckpt.save(state)
 
         while test_marks and state.episodes_seen >= test_marks[0]:
             test_marks.pop(0)
             deferred.flush()
             summary = run_eval(cfg, state.model.eval(), eval_sampler,
-                               eval_step=eval_step, device=device)
+                               eval_step=eval_step, device=device, dp=dp)
             state.model.train()
             eval_history.append({"episodes": state.episodes_seen, **summary})
             logger.info(f"eval @{state.episodes_seen} episodes: "
@@ -204,6 +249,8 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
                         f"{summary['confidence']:.2f} "
                         f"({summary['n_tasks']} tasks)")
     deferred.flush()
-    if ckpt:
+    if ckpt and writer:
         ckpt.save(state)
+    if dp is not None:
+        dp.barrier()     # every checkpoint is on disk when the ranks return
     return eval_history

@@ -19,7 +19,12 @@ import torch
 from ..config import Config
 from ..distill import get_distiller, merge_logits
 from ..models import BatchedStudent, BatchedTeacher, init_student_
+from ..ops.batch_norm import synced_moments
 from ..ops.positional import bind_dropout_generator
+from ..parallel.data_parallel import (all_reduce_grads, check_sync_batch_norm,
+                                      chunk_layout, reconcile_running_stats,
+                                      reduce_metrics, snapshot_running_stats)
+from ..parallel.multihost import DataParallel
 from ..tools.weights import merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .schedule import make_optimizer
@@ -140,18 +145,27 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-def make_train_step(cfg: Config) -> Callable:
+def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
+                    ) -> Callable:
     """``train_step(state, batch) → metrics``: one optimizer update on a
     batch of episodes, state updated in place. The metrics are device
     scalars: ``task_loss`` summed over the chunks, every other metric the
     mean of the per-chunk means; with ``cfg.train.watch`` also the global
     and per-top-module gradient and parameter norms (over the parameters
-    the loss reaches)."""
+    the loss reaches).
+
+    With ``dp`` (a rank of a process group) ``batch`` is this rank's
+    ``tasks_per_batch / world`` episodes and the update is the one of the
+    ranks' shards concatenated: gradients and metrics are reduced over the
+    ranks and BatchNorm moments or running statistics synchronised, as
+    :mod:`litemkd_torch.parallel.data_parallel` sets out."""
     distill = get_distiller(cfg.distill.name)
     dcfg = cfg.distill
     tpb = cfg.train.tasks_per_batch
     micro = cfg.train.micro_batch
     watch = cfg.train.watch
+    world = dp.world if dp is not None else 1
+    layout = chunk_layout(micro, tpb, world) if dp is not None else None
 
     def chunk_loss(state: TrainState, chunk: EpisodeBatch):
         out = state.model(chunk.support_clips, chunk.support_labels,
@@ -183,14 +197,24 @@ def make_train_step(cfg: Config) -> Callable:
             state.teacher.train()
         state.optimizer.zero_grad(set_to_none=True)
         chunks = _chunks(batch, micro)
+        if layout == "span" and world > 1:
+            check_sync_batch_norm(state.model)
+        before = (snapshot_running_stats(state.model)
+                  if layout == "local" and world > 1 else None)
         sums: Dict[str, torch.Tensor] = {}
-        for chunk in chunks:
-            loss, m = chunk_loss(state, chunk)
-            loss.backward()
-            for k, v in m.items():
-                sums[k] = sums[k] + v if k in sums else v
+        with synced_moments(state.model, world if layout == "span" else 1):
+            for chunk in chunks:
+                loss, m = chunk_loss(state, chunk)
+                loss.backward()
+                for k, v in m.items():
+                    sums[k] = sums[k] + v if k in sums else v
         metrics = {k: (v if k == "task_loss" else v / len(chunks))
                    for k, v in sums.items()}
+        if dp is not None:
+            all_reduce_grads(state.model, dp)
+            metrics = reduce_metrics(metrics, dp)
+            if before is not None:
+                reconcile_running_stats(state.model, before, dp)
         if watch:
             named = [(n, p) for n, p in state.model.named_parameters()
                      if p.grad is not None]
@@ -204,7 +228,7 @@ def make_train_step(cfg: Config) -> Callable:
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        state.episodes_seen += batch.support_labels.shape[0]
+        state.episodes_seen += batch.support_labels.shape[0] * world
         return metrics
 
     return train_step

@@ -39,6 +39,9 @@ from ..models.teacher import (ComposedFusionTeacher, DGAFusionTeacher,
 from ..models.teacher.composer import preset_base
 from ..ops.dtypes import anchor_dtype
 from ..ops.positional import bind_dropout_generator
+from ..parallel.data_parallel import (all_reduce_grads, check_sync_batch_norm,
+                                      reduce_metrics)
+from ..parallel.multihost import DataParallel
 from ..tools.weights import load_reference_checkpoint, merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .checkpoint import CheckpointManager
@@ -222,14 +225,24 @@ def load_tsf_branches(model: ScoreFusion, branch_ckpts: Dict[str, str],
     return model
 
 
-def make_mfm_train_step(cfg: Config) -> Callable:
+def make_mfm_train_step(cfg: Config, dp: Optional[DataParallel] = None
+                        ) -> Callable:
     """``train_step(state, batch) → metrics``: one SGD update on a batch of
     episodes whose clips are ``{modality: (E, N, T, D)}`` features, in one
     forward and one backward. Metrics (device scalars): ``task_loss``, the
-    summed loss, and ``accuracy``, the mean per-episode accuracy."""
+    summed loss, and ``accuracy``, the mean per-episode accuracy.
+
+    With ``dp`` the batch is this rank's share of the episodes, and the
+    gradients and ``task_loss`` are summed over the ranks (``accuracy``
+    averaged). No fusion kind keeps statistics across the episodes of a
+    batch (each looks at one side of one episode at a time), so nothing
+    else is shared; a module with BatchNorm statistics raises."""
     tpb = cfg.train.tasks_per_batch
+    world = dp.world if dp is not None else 1
 
     def train_step(state: TrainState, batch: EpisodeBatch) -> Dict:
+        if dp is not None:
+            check_sync_batch_norm(state.model, allowed=())
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         logits = state.model(batch.support_clips, batch.support_labels,
@@ -237,11 +250,15 @@ def make_mfm_train_step(cfg: Config) -> Callable:
         total = (sum_ce(logits, batch.query_labels) / tpb).sum()
         total.backward()
         acc = per_episode_accuracy(logits.detach(), batch.query_labels)
+        metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
+        if dp is not None:
+            all_reduce_grads(state.model, dp)
+            metrics = reduce_metrics(metrics, dp)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        state.episodes_seen += batch.support_labels.shape[0]
-        return {"task_loss": total.detach(), "accuracy": acc.mean()}
+        state.episodes_seen += batch.support_labels.shape[0] * world
+        return metrics
 
     return train_step
 

@@ -2,7 +2,8 @@
 stdout every ``print_freq`` steps and, with a ``log_dir``, to a JSONL
 stream and a text log; with ``use_wandb`` also to a wandb run, where the
 package imports and initialises (otherwise a notice on stderr, and the run
-goes on without it, as in the JAX package)."""
+goes on without it, as in the JAX package). A ``quiet`` logger (a
+data-parallel rank other than 0) prints nothing."""
 from __future__ import annotations
 
 import json
@@ -14,8 +15,10 @@ from typing import Dict, Optional
 
 class MetricsLogger:
     def __init__(self, log_dir: Optional[str] = None, run_name: str = "run",
-                 print_freq: int = 10, use_wandb: bool = False):
-        self.print_freq = print_freq
+                 print_freq: int = 10, use_wandb: bool = False,
+                 quiet: bool = False):
+        self.print_freq = 0 if quiet else print_freq
+        self.quiet = quiet
         self.run_name = run_name
         self._t0 = time.time()
         self._jsonl = self._text = self._wandb = None
@@ -52,7 +55,8 @@ class MetricsLogger:
             print(f"[{self.run_name} {step}] {body}", flush=True)
 
     def info(self, msg: str) -> None:
-        print(msg, flush=True)
+        if not self.quiet:
+            print(msg, flush=True)
         if self._jsonl:
             self._jsonl.write(json.dumps({"info": msg}) + "\n")
         if self._text:

@@ -690,3 +690,220 @@ def test_scorer_artifact_on_card_launches_kernel_twice(cuda_device, tmp_path):
         want = aot.make_serving_fn(cfg, model)(sup, lab, qry)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_profile_on_card_names_the_kernels(cuda_device, tmp_path):
+    """``cli.profile --path train --pallas_bn`` on the card: a trace, and a
+    summary whose kernels are named after the custom ops that launched
+    them, the TCT and both BN kernels."""
+    from litemkd_torch.cli import profile
+    buckets = profile.main(["--preset", "tiny", "--path", "train", "--pallas_bn",
+                            "--tasks_per_batch", "4", "--micro_batch", "2",
+                            "--steps", "1", "--out", str(tmp_path), "--device",
+                            "cuda"])
+    assert list(tmp_path.glob("*.pt.trace.json"))
+    for op in ("litemkd::tct_attention", "litemkd::bn_sums", "litemkd::bn_bwd_sums"):
+        assert any(k.startswith(op + " ") for k in buckets), (op, sorted(buckets))
+
+
+@pytest.mark.cuda
+def test_flops_on_card_equal_the_fake_count(cuda_device):
+    """FLOPs of one real tiny forward on the card (the TCT kernel launched,
+    counted through its formula) equal ``cli.flops``' count under
+    FakeTensorMode, on the card and on the CPU."""
+    from litemkd_torch.cli import flops
+    from litemkd_torch.models import Student
+    from litemkd_torch.utils.tracing import cost_analysis
+    cfg = preset("tiny")
+    ep = cfg.episode
+    model = Student(cfg).to(cuda_device).eval()
+    frame = (ep.seq_len, ep.img_size, ep.img_size, 3)
+    before = ta.tct_attention.launches
+    with torch.no_grad():
+        real = cost_analysis(
+            model, torch.zeros((ep.n_support, *frame), dtype=torch.uint8,
+                               device=cuda_device),
+            torch.arange(ep.way, device=cuda_device).repeat_interleave(ep.shot),
+            torch.zeros((ep.n_queries(True), *frame), dtype=torch.uint8,
+                        device=cuda_device))
+    assert ta.tct_attention.launches > before
+    assert real["by_op"]["litemkd.tct_attention"] > 0
+    for device in ("cuda", "cpu"):
+        fake = flops.main(["--preset", "tiny", "--device", device])
+        assert fake["gflops"] * 1e9 == pytest.approx(real["flops"], rel=1e-12)
+
+
+# name → (train settings, pallas_bn): a chunk spanning every rank (on the
+# cuDNN config and with the BN kernels) and chunks inside each rank
+DP_SCENARIOS = {
+    "span": (dict(tasks_per_batch=4, micro_batch=0), False),
+    "span_kernel": (dict(tasks_per_batch=4, micro_batch=0), True),
+    "local": (dict(tasks_per_batch=8, micro_batch=2), True),
+}
+
+
+def _dp_cfg(name=None):
+    import dataclasses
+    base = preset("tiny")
+    train, pallas_bn = DP_SCENARIOS[name] if name else (
+        dict(tasks_per_batch=4, training_iterations=4), False)
+    train = dict(dict(training_iterations=train["tasks_per_batch"]), **train)
+    return base.replace(
+        model=dataclasses.replace(base.model, compute_dtype="float32",
+                                  trans_dropout=0.0, pallas_bn=pallas_bn),
+        data=dataclasses.replace(base.data, synthetic_noise=2.0),
+        train=dataclasses.replace(base.train, test_iters=(), print_freq=0,
+                                  **train))
+
+
+def data_parallel_against_one_device(device, world, tmp_path, timeout=300):
+    """Run ``tests/torch_parallel_worker.py`` over ``world`` ranks on
+    ``device`` (one card a rank and NCCL on ``cuda``, gloo on ``cpu``) and
+    hold what it saw against one process on ``device`` (its first card) on
+    the ranks' shards concatenated. Returns the largest deviations seen."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    from litemkd_torch.cli.train_teacher import SyntheticMultiModalSource
+    from litemkd_torch.data import SyntheticEpisodeSource
+    from litemkd_torch.parallel import host_rng, local_episode_count
+    from litemkd_torch.train import (create_mfm_train_state, create_train_state,
+                                     make_mfm_train_step, make_train_step,
+                                     run_eval, to_device)
+    from torch_parallel_worker import MetaSource, concat_batches, kernel_launches
+
+    device = torch.device(device)
+    repo = Path(__file__).resolve().parent.parent
+    init = create_train_state(_dp_cfg("span"), "cpu")
+    with torch.no_grad():     # off the ReLU kinks, as in the train-step test
+        for m in init.model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.fill_(3.0)
+    student, teacher = init.model.state_dict(), init.teacher.state_dict()
+
+    def one_batch(cfg, src, per_rank, **kw):
+        return concat_batches([src.sample_batch(host_rng(cfg.train.seed, r, 0),
+                                                per_rank, **kw)
+                               for r in range(world)])
+
+    # the one-device side first: it builds the kernels the ranks then load
+    want = {}
+    for name in DP_SCENARIOS:
+        cfg = _dp_cfg(name)
+        src = SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
+                                     noise=cfg.data.synthetic_noise)
+        batch = one_batch(cfg, src, local_episode_count(
+            cfg.train.tasks_per_batch, world), train=True)
+        state = create_train_state(cfg, device, student_state_dict=student,
+                                   teacher_state_dict=teacher)
+        before = kernel_launches()
+        metrics = make_train_step(cfg)(state, to_device(batch, device))
+        want[name] = (state, {k: float(v) for k, v in metrics.items()},
+                      [a - b for a, b in zip(kernel_launches(), before)])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.save({"student": student, "teacher": teacher,
+                "scenarios": {n: json.loads(_dp_cfg(n).to_json())
+                              for n in DP_SCENARIOS},
+                "mfm": json.loads(_dp_cfg().to_json())}, tmp_path / "init.pt")
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(world), "--master_addr", "localhost", "--master_port", str(port),
+           str(repo / "tests" / "torch_parallel_worker.py"), "--init",
+           str(tmp_path / "init.pt"), "--out", str(tmp_path / "out.pt"),
+           "--ckdir", str(tmp_path / "cli"), "--device", device.type]
+    r = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True,
+                       text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-5000:]
+    got = torch.load(tmp_path / "out.pt", weights_only=False)
+    assert got["world"] == world
+    sums = [torch.load(tmp_path / f"out.pt.{k}") for k in range(world)]
+    assert all(s == sums[0] for s in sums), sums
+
+    dev = {}
+    for name, (state, metrics, launches) in want.items():
+        g = got["scenarios"][name]
+        assert g["episodes_seen"] == state.episodes_seen
+        (m,) = g["metrics"]
+        for k, v in metrics.items():
+            assert m[k] == pytest.approx(v, rel=1e-4, abs=1e-6), (name, k)
+        for k, v in state.model.state_dict().items():
+            np.testing.assert_allclose(g["state_dict"][k].numpy(), v.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=f"{name} {k}")
+        grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        assert set(grads) == set(g["grads"])
+        g_max = max(float(x.abs().max()) for x in grads.values())
+        err = max(float((g["grads"][k] - x).abs().max()) for k, x in grads.items())
+        assert err <= 1e-3 * g_max, (name, err, g_max)
+        dev[name] = err / g_max
+        # the spanning chunk takes its moments through the BN kernels on the
+        # card with or without pallas_bn: each rank launches what one device
+        # does with them, its one chunk; in rank, a rank runs 1/world of the
+        # chunks (no launch on the CPU)
+        one = want["span_kernel" if name == "span" else name][2]
+        share = 1 if name.startswith("span") else world
+        assert all(n % share == 0 for n in one), (name, one)
+        kernel = [n // share for n in one]
+        assert g["launches"] == kernel, (name, g["launches"], kernel)
+        if device.type == "cuda":
+            assert min(kernel) > 0, (name, kernel)
+
+    cfg = _dp_cfg("span")
+    student = create_train_state(cfg, device, with_teacher=False).model
+    student.load_state_dict(got["eval_model"])
+    records = []
+    src = SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
+                                 noise=cfg.data.synthetic_noise)
+    ev = run_eval(cfg, student.eval(), MetaSource(src), n_tasks=16,
+                  batch_size=8, seed=0, task_log=records.append)
+    assert got["eval"]["n_tasks"] == ev["n_tasks"] == 16
+    for k in ("accuracy", "confidence"):
+        assert got["eval"][k] == pytest.approx(ev[k], abs=1e-4), k
+    assert [x["real_preds"] for x in got["eval_records"]] == \
+        [x["real_preds"] for x in records]
+
+    mcfg = _dp_cfg()
+    mfm = create_mfm_train_state(mcfg, device)
+    msrc = SyntheticMultiModalSource(mcfg, seed=mcfg.train.seed)
+    mm = make_mfm_train_step(mcfg)(mfm, to_device(one_batch(
+        mcfg, msrc, local_episode_count(mcfg.train.tasks_per_batch, world)),
+        device))
+    (m,) = got["mfm"]["metrics"]
+    for k, v in mm.items():
+        assert m[k] == pytest.approx(float(v), rel=1e-4, abs=1e-6), k
+    for k, v in mfm.model.state_dict().items():
+        np.testing.assert_allclose(got["mfm"]["state_dict"][k].numpy(),
+                                   v.cpu().numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+    names = sorted(os.listdir(tmp_path / "cli"))
+    assert [n for n in names if n.endswith(".pt")] == ["checkpoint_4.pt"]
+    assert "ROADMAP.md §1, slice 15" in got["model_axis_error"]
+    return dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_data_parallel_over_cards_equals_one_card(cuda_device, tmp_path, world):
+    """Data-parallel training and eval over ``world`` cards (NCCL, one rank
+    a card) equal one card on the ranks' shards concatenated: loss and
+    metrics (rel 1e-4), every parameter and BN running statistic after the
+    step (rtol 1e-4, atol 1e-6), gradients within 1e-3 of the largest (the
+    card-vs-CPU bound above: the ranks run other batch sizes, so other
+    reduction orders), each rank's kernel launches (one card's for a
+    spanning chunk, 1/world of them in rank), the sharded eval, the MFM
+    step and ``cli.train`` from rank 0. Needs ``world`` cards."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices, found "
+                    f"{torch.cuda.device_count()}")
+    dev = data_parallel_against_one_device("cuda", world, tmp_path)
+    print(f"world {world}: largest gradient deviation / max|g| {dev}")

@@ -144,6 +144,7 @@ def test_config_json_round_trips_between_packages():
     ["--preset", "tiny", "--test_model", "teacher", "--per_task_log",
      "{dir}/tasks.jsonl", "--model_teacher", "test_teacher_TRX_2fcsup_fixed"],
     ["--preset", "tiny", "--pallas_tct", "--wandb"],
+    ["--preset", "tiny", "--mesh_data", "2", "--mesh_model", "1"],
 ])
 def test_cli_config_equals_jax(argv, tmp_path):
     """The port's eval flags build the config that the JAX package's
@@ -255,7 +256,13 @@ def test_port_sources_import_no_jax():
             "litemkd_torch/data/transforms.py",
             "litemkd_torch/tools/shrink_dataset.py",
             "litemkd_torch/tools/follow_pid.py",
-            "litemkd_torch/tools/pipeline_bench.py"} <= scanned
+            "litemkd_torch/tools/pipeline_bench.py",
+            "litemkd_torch/utils/tracing.py", "litemkd_torch/cli/flops.py",
+            "litemkd_torch/cli/profile.py", "litemkd_torch/utils/saliency.py",
+            "litemkd_torch/tools/figures.py", "litemkd_torch/cli/figures.py",
+            "litemkd_torch/ops/pooling.py", "litemkd_torch/parallel/mesh.py",
+            "litemkd_torch/parallel/multihost.py",
+            "litemkd_torch/parallel/data_parallel.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",
