@@ -24,7 +24,7 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    kernel and plain version, which must give the same accuracies; then the
    device-resident eval rate;
 5. training path: full-width ``student_fc2sup_dist`` training with the BN
-   kernels on (2 steps of 16 episodes, micro-batch 4, an 8-episode eval at
+   kernels on (2 steps of 4 episodes, one micro-batch each, a 4-episode eval at
    the end) through ``litemkd_torch.cli.train.main``, with the launch
    counts read around it; the checkpoint it wrote through the eval CLI;
    then the device-resident training rate with the BN kernels and with
@@ -32,8 +32,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 6. MFM teacher: the tiny fp32 teacher on the card against the CPU (forward
    logits, one SGD step, extracted features); then at the full width of
    ``preset("mfm_teacher")`` on a seeded per-modality feature tree written
-   under ``.chip_smoke/``: 2 training steps of 16 episodes and an
-   8-episode eval through ``litemkd_torch.cli.train_teacher.main`` with
+   under ``.chip_smoke/``: 2 training steps of 4 episodes and an
+   4-episode eval through ``litemkd_torch.cli.train_teacher.main`` with
    the launch counts read around it, the checkpoint through
    ``--test_only``, and the whole tree through
    ``litemkd_torch.cli.extract.main``; then the device-resident training
@@ -41,8 +41,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    step under the profiler;
 7. real video data: a JPEG frame tree (320×240, 8-10 frames a video) with
    the class and video names of phase 6's tree, written with PIL; the
-   full-width student trained from it with the BN kernels (2 steps of 16
-   episodes, an 8-episode eval) through ``litemkd_torch.cli.train.main``
+   full-width student trained from it with the BN kernels (2 steps of 4
+   episodes, a 4-episode eval) through ``litemkd_torch.cli.train.main``
    against the fused features phase 6 extracted, with the launch counts
    read around it and the clip decoder that ran (the C++ one where it
    builds, PIL otherwise); its checkpoint through
@@ -55,8 +55,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 8. the expert and pretrain stages on phase 7's tree, closing the chain
    from frames: resnet50 pretraining (one epoch, batches of 8 clips)
    through ``litemkd_torch.cli.pretrain.main``; full-width ``expert_trx``
-   training with the BN kernels and per-block remat (2 steps of 16
-   episodes in chunks of 4, an 8-episode eval) through
+   training with the BN kernels and per-block remat (2 steps of 4
+   episodes in chunks of 4, a 4-episode eval) through
    ``litemkd_torch.cli.train.main`` against phase 6's fused tree, with the
    launch counts read around it; the whole tree through ``cli.extract
    --mode_extract expert --arch resnet50`` from the pretrain checkpoint;
@@ -68,8 +68,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 9. the other experts, DeiT pretraining and the eval extras on the trees
    of phases 6 and 7: full-width ``expert_strm --remat`` (the STRM trunk
    without BN kernels, as in the JAX package) and ``expert_baseline
-   --pallas_bn --remat`` training (2 steps of 16 episodes in chunks of 4,
-   an 8-episode eval) through ``litemkd_torch.cli.train`` with the launch
+   --pallas_bn --remat`` training (2 steps of 4 episodes, one chunk each,
+   a 4-episode eval) through ``litemkd_torch.cli.train`` with the launch
    counts derived from the modules; DeiT-small pretraining (one epoch)
    through ``litemkd_torch.cli.pretrain --arch deit_small``, its
    checkpoint's layout and ``load_pretrain_init`` on it; phase 6's MFM
@@ -83,8 +83,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
 10. the rest of the student zoo and the skeleton expert: full-width
    ``student_mobilenet`` (MobileNetV3-large 2-fc, cuDNN BatchNorm) trained
    from phase 7's tree against phase 6's fused tree through
-   ``litemkd_torch.cli.train`` (2 steps of 16 episodes in chunks of 4, an
-   8-episode eval) and its checkpoint through ``litemkd_torch.cli.test``,
+   ``litemkd_torch.cli.train`` (2 steps of 4 episodes, one chunk each, an
+   4-episode eval) and its checkpoint through ``litemkd_torch.cli.test``,
    with the launch counts derived from the modules read around each; each
    TRX, OTAM, TRX_multi and CTX head at tiny width on the card against
    the CPU and at full width for one training chunk, launches counted;
@@ -103,8 +103,8 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    for five kinds), with the TCT launches each module calls; TSF at the
    full width of ``preset("mfm_teacher")`` through
    ``litemkd_torch.cli.train_teacher --fusion tsf --score_weights 1 0.5
-   0.5 --branch_ckpt rgb=<phase 8's expert_trx run>`` (2 steps of 16
-   episodes, an 8-episode eval; the graft checked first) and its
+   0.5 --branch_ckpt rgb=<phase 8's expert_trx run>`` (2 steps of 4
+   episodes, a 4-episode eval; the graft checked first) and its
    checkpoint through ``--test_only``; ``ThreeTRXCombination`` through
    ``cli.train_teacher`` and ``cli.extract`` of its run directory;
    ``cli.extract --fusion TwoCombinationTemTroShiftTRX_faithful`` with
@@ -137,13 +137,24 @@ Phases, each of which raises on failure (nothing falls back to the CPU):
    of ``backbone_predict``); one 4-episode ``cli.train --mesh_data 1``
    step under ``torch.distributed.run`` on NCCL, whose loss must equal a
    plain run's from the same seed; and the data-parallel step's device
-   time at one rank beside the plain step's (16 episodes on the card).
+   time at one rank beside the plain step's (16 episodes on the card);
+14. the mesh's model axis: the flagship student (its frozen teacher too)
+   and the MFM at full width cut by ``shard_model`` at M = 1 over a
+   one-rank NCCL group, one 4-episode step each against the unsharded
+   models (loss, every gradient), launches counted; with two or more
+   cards, ``cli.train_teacher --preset mfm_teacher`` and ``cli.train
+   --preset student_fc2sup_dist`` at (data 1, model 2) under
+   ``torch.distributed.run`` against one card, each rank's launches and
+   the device-resident steps per rank at M = 2 (and 4) beside one card's,
+   and with four ``cli.test`` of the checkpoint at (2, 2); with one card
+   it says that those runs need 2.
 It prints a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -222,11 +233,15 @@ CHUNK_FRAMES = 1600
 # one expert_trx training chunk: 4 episodes × (25 + 20) clips × 8 frames
 EXPERT_CHUNK_FRAMES = 1440
 BN_RAGGED = [(210, 16), (1000, 100), (4096, 2048)]
-TRAIN_EPISODES, TRAIN_STEPS, EVAL_TASKS = 16, 2, 8
+TRAIN_EPISODES, TRAIN_STEPS, EVAL_TASKS = 16, 2, 4
+# the CLI runs' steps: one micro-batch chunk of 4 episodes each (the device
+# rates run TRAIN_EPISODES), so host batch assembly stays a few seconds
+CLI_EPISODES = 4
 TRAIN_ARGV = ["--preset", "student_fc2sup_dist", "--dataset", "synthetic",
-              "--pallas_bn", "--training_iterations",
-              str(TRAIN_EPISODES * TRAIN_STEPS), "--test_iters",
-              str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks",
+              "--pallas_bn", "--tasks_per_batch", str(CLI_EPISODES),
+              "--training_iterations",
+              str(CLI_EPISODES * TRAIN_STEPS), "--test_iters",
+              str(CLI_EPISODES * TRAIN_STEPS), "--num_test_tasks",
               str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda"]
 
 
@@ -851,7 +866,7 @@ def train_main_path(card, run_root):
     finally:
         SyntheticEpisodeSource.sample_batch = sample_batch
     cfg = cli_train.parse(TRAIN_ARGV)[1]
-    chunks = TRAIN_STEPS * TRAIN_EPISODES // (cfg.train.micro_batch or TRAIN_EPISODES)
+    chunks = TRAIN_STEPS * CLI_EPISODES // (cfg.train.micro_batch or CLI_EPISODES)
     eval_chunks = math.ceil(EVAL_TASKS / 8)
     want = dict(tct_attention=3 * chunks + 2 * eval_chunks, bn_sums=20 * chunks,
                 bn_bwd_sums=20 * chunks)
@@ -868,7 +883,7 @@ def train_main_path(card, run_root):
     log("[train] per-step metrics: " + json.dumps(
         [{k: r[k] for k in ("step", "task_loss", "soft_loss", "hard_loss",
                             "accuracy")} for r in steps]))
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     log(f"[train] CLI training on {card}: {n_eps / wall:.3f} episodes/s end to "
         f"end ({wall:.2f} s for {n_eps} training + {EVAL_TASKS} eval episodes; "
         f"host synthetic draws {draw[0]:.2f} s on the prefetch thread, beside "
@@ -1073,10 +1088,10 @@ def mfm_main_path(card, run_root):
         f"({ep.seq_len}, {dim}) fp32 in {time.perf_counter() - t0:.2f} s")
     data = ["--feature_root", str(root), "--device", "cuda"]
     argv = ["--preset", "mfm_teacher", "--dataset", "hmdb", "--traintestlist",
-            str(root / "splits"), "--tasks_per_batch", str(TRAIN_EPISODES),
+            str(root / "splits"), "--tasks_per_batch", str(CLI_EPISODES),
             "--training_iterations",
-            str(TRAIN_EPISODES * TRAIN_STEPS), "--test_iters",
-            str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
+            str(CLI_EPISODES * TRAIN_STEPS), "--test_iters",
+            str(CLI_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
             "--print_freq", "1", "-c", str(ckdir)] + data
     n_sets = len(cfg.model.temp_set)
     eval_chunks = math.ceil(EVAL_TASKS / 8)
@@ -1091,7 +1106,7 @@ def mfm_main_path(card, run_root):
     want = dict(tct_attention=n_sets * (TRAIN_STEPS + eval_chunks), bn_sums=0,
                 bn_bwd_sums=0)
     log(f"[mfm] training launches {counts} over {TRAIN_STEPS} steps of "
-        f"{TRAIN_EPISODES} episodes and {eval_chunks} eval chunk(s); expected {want}")
+        f"{CLI_EPISODES} episodes and {eval_chunks} eval chunk(s); expected {want}")
     if counts != want:
         raise AssertionError(f"MFM launch counts {counts} != {want}")
     steps = [r for r in _train_records(ckdir) if "task_loss" in r]
@@ -1103,7 +1118,7 @@ def mfm_main_path(card, run_root):
     log("[mfm] per-step metrics: " + json.dumps(
         [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
         + f"; eval {history[0]}")
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     ckpt = ckdir / f"checkpoint_{n_eps}.pt"
     log(f"[mfm] CLI training on {card}: {n_eps / wall:.3f} episodes/s end to end "
         f"({wall:.2f} s for {n_eps} training + {EVAL_TASKS} eval episodes, model "
@@ -1252,10 +1267,12 @@ FRAME_SIZE = (320, 240)   # HMDB's frames (W, H): the shorter-side resize to 256
 JPEG_QUALITY = 90
 VIDEO_PRESET = "student_fc2sup_dist"
 REPLAY_TASKS = 6   # not the checkpoint's num_test_tasks: n_tasks shows the file was read
+HOST_EPISODES = 8  # the host's batch assembly timed at each thread count
 VIDEO_ARGV = ["--preset", VIDEO_PRESET, "--pallas_bn", "--dataset", "hmdb",
-              "--training_iterations", str(TRAIN_EPISODES * TRAIN_STEPS),
-              "--test_iters", str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks",
-              str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda"]
+              "--training_iterations", str(CLI_EPISODES * TRAIN_STEPS),
+              "--test_iters", str(CLI_EPISODES * TRAIN_STEPS), "--num_test_tasks",
+              str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda",
+              "--tasks_per_batch", str(CLI_EPISODES)]
 
 
 def batch_digest(batch):
@@ -1360,7 +1377,7 @@ def video_main_path(label, run_root):
     finally:
         EpisodeSampler.sample_batch = sample_batch
     cfg = cli_train.parse(VIDEO_ARGV + data)[1]
-    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    chunks = TRAIN_STEPS * CLI_EPISODES // cfg.train.micro_batch
     want = dict(tct_attention=3 * chunks + 2 * math.ceil(EVAL_TASKS / 8),
                 bn_sums=20 * chunks, bn_bwd_sums=20 * chunks)
     ran = sorted(video_mod.decoders_used)
@@ -1379,7 +1396,7 @@ def video_main_path(label, run_root):
     log("[video] per-step metrics: " + json.dumps(
         [{k: r[k] for k in ("step", "task_loss", "soft_loss", "hard_loss", "accuracy")}
          for r in steps]) + f"; eval {history[0]}")
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     log(f"[video] CLI training from the JPEG tree on {label}: {n_eps / wall:.3f} "
         f"episodes/s end to end ({wall:.2f} s for {n_eps} training + {EVAL_TASKS} "
         f"eval episodes, model set-up and checkpoint write included; host batch "
@@ -1431,12 +1448,12 @@ def video_main_path(label, run_root):
         sampler = EpisodeSampler(cfg, stores.videos, stores.features,
                                  num_workers=workers)
         t0 = time.perf_counter()
-        batch = sampler.sample_batch(np.random.default_rng(workers), TRAIN_EPISODES)
+        batch = sampler.sample_batch(np.random.default_rng(workers), HOST_EPISODES)
         dt = time.perf_counter() - t0
         sampler.pool.shutdown()
         n_frames = sum(x.shape[0] * x.shape[1] * x.shape[2]
                        for x in (batch.support_clips, batch.query_clips))
-        log(f"[video] host sample_batch of {TRAIN_EPISODES} episodes "
+        log(f"[video] host sample_batch of {HOST_EPISODES} episodes "
             f"({n_frames} frames) on {workers} threads: {dt:.3f} s; host of {label}")
     n_bytes = sum(x.nbytes for x in batch if x is not None)
     for i in range(2):
@@ -1458,9 +1475,10 @@ def video_main_path(label, run_root):
 
 EXPERT_PRESET = "expert_trx"
 EXPERT_ARGV = ["--preset", EXPERT_PRESET, "--pallas_bn", "--remat", "--dataset", "hmdb",
-               "--training_iterations", str(TRAIN_EPISODES * TRAIN_STEPS),
-               "--test_iters", str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks",
-               str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda"]
+               "--training_iterations", str(CLI_EPISODES * TRAIN_STEPS),
+               "--test_iters", str(CLI_EPISODES * TRAIN_STEPS), "--num_test_tasks",
+               str(EVAL_TASKS), "--print_freq", "1", "--device", "cuda",
+               "--tasks_per_batch", str(CLI_EPISODES)]
 PRETRAIN_ARGV = ["--dataset", "hmdb", "--arch", "resnet50", "--epochs", "1",
                  "--batch_size", "8", "--print_freq", "1", "--device", "cuda"]
 EXTRACT_DEVICE_VIDEOS = 64
@@ -1510,7 +1528,7 @@ def expert_launches(cfg):
         trunk = BatchedStudent(cfg).backbone.resnet
     n_bn = sum(kernel_bn(m) for m in trunk.modules())
     n_block = sum(kernel_bn(m) for layer in list(trunk)[4:] for m in layer.modules())
-    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    chunks = TRAIN_STEPS * CLI_EPISODES // cfg.train.micro_batch
     calls = student_tct_calls(cfg)
     return dict(tct_attention=(calls + 1) * chunks + calls * math.ceil(EVAL_TASKS / 8),
                 bn_sums=(n_bn + (n_block if cfg.model.remat else 0)) * chunks,
@@ -1556,8 +1574,8 @@ def pretrain_path(label, frames, splits, ckdir):
 
 def expert_train_path(label, frames, splits, fused, ckdir, argv=None):
     """Full-width expert training (``argv``: by default ``expert_trx`` with
-    the BN kernels and per-block remat; 2 steps of 16 episodes in chunks of
-    4, an 8-episode eval) through ``cli.train`` against the fused tree,
+    the BN kernels and per-block remat; 2 steps of 4 episodes in chunks of
+    4, a 4-episode eval) through ``cli.train`` against the fused tree,
     with the launch counts read around it. Returns the counts."""
     from litemkd_torch.data import EpisodeSampler
     argv = argv or EXPERT_ARGV
@@ -1586,7 +1604,7 @@ def expert_train_path(label, frames, splits, fused, ckdir, argv=None):
         raise AssertionError(f"bad {name} training metrics {steps}")
     if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
         raise AssertionError(f"bad {name} mid-training eval {history}")
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     log(f"[expert] {name} per-step metrics: " + json.dumps(
         [{k: r[k] for k in r if k not in ("time", "episodes")} for r in steps])
         + f"; eval {history[0]}")
@@ -1654,7 +1672,7 @@ def chain_eval(label, run_root, expert_out):
     (chain / "rgb").symlink_to(expert_out)
     for m in MFM_MODS[1:]:
         (chain / m).symlink_to(run_root / "tree" / m)
-    ckpt = run_root / "mfm" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    ckpt = run_root / "mfm" / f"checkpoint_{CLI_EPISODES * TRAIN_STEPS}.pt"
     zero_counts()
     summary = cli_teacher.main(["--test_only", "-m", str(ckpt), "--num_test_tasks",
                                 str(EVAL_TASKS), "--feature_root", str(chain),
@@ -1798,7 +1816,7 @@ def teacher_eval_path(label, run_root):
     and a second run gives the same accuracy and CI. Returns the launch
     counts of the first run."""
     from litemkd_torch.data import EpisodeSampler
-    ckpt = run_root / "mfm" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    ckpt = run_root / "mfm" / f"checkpoint_{CLI_EPISODES * TRAIN_STEPS}.pt"
     argv = ["--test_model", "teacher", "-m", str(ckpt), "--dataset", "hmdb",
             "--rgb_path", str(run_root / "frames"), "--teacher_path",
             str(run_root / "fused"), "--traintestlist", str(run_root / "tree" / "splits"),
@@ -1836,7 +1854,7 @@ def per_task_log_path(label, run_root):
     query once. Returns the launch counts."""
     from litemkd_torch.tools.confusion import (confusion_from_records,
                                                most_confused, read_task_log)
-    ckpt = run_root / "video_run" / f"checkpoint_{TRAIN_EPISODES * TRAIN_STEPS}.pt"
+    ckpt = run_root / "video_run" / f"checkpoint_{CLI_EPISODES * TRAIN_STEPS}.pt"
     path = run_root / "tasks.jsonl"
     zero_counts()
     summary = cli_test.main([
@@ -2099,8 +2117,8 @@ def skeleton_expert_path(label):
 def mobilenet_main_path(label, run_root):
     """Full-width ``student_mobilenet`` (MobileNetV3-large 2-fc, cuDNN
     BatchNorm) trained from phase 7's JPEG tree through ``cli.train``
-    against phase 6's fused tree (2 steps of 16 episodes in chunks of 4, an
-    8-episode eval), then its checkpoint through ``cli.test`` (8 episodes),
+    against phase 6's fused tree (2 steps of 4 episodes, one chunk each, a
+    4-episode eval), then its checkpoint through ``cli.test`` (4 episodes),
     with the launch counts read around each: the flagship's TCT launches
     (kl and ce a chunk, the frozen teacher in training), no BN kernel.
     Returns the summed counts."""
@@ -2122,7 +2140,7 @@ def mobilenet_main_path(label, run_root):
     finally:
         EpisodeSampler.sample_batch = orig
     cfg = cli_train.parse(MOBILE_ARGV + data)[1]
-    chunks = TRAIN_STEPS * TRAIN_EPISODES // cfg.train.micro_batch
+    chunks = TRAIN_STEPS * CLI_EPISODES // cfg.train.micro_batch
     calls = student_tct_calls(cfg)
     want = dict(tct_attention=(calls + 1) * chunks + calls * math.ceil(EVAL_TASKS / 8),
                 bn_sums=0, bn_bwd_sums=0)
@@ -2136,7 +2154,7 @@ def mobilenet_main_path(label, run_root):
         raise AssertionError(f"bad student_mobilenet training metrics {steps}")
     if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
         raise AssertionError(f"bad student_mobilenet mid-training eval {history}")
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     log("[mobile] per-step metrics: " + json.dumps(
         [{k: r[k] for k in ("step", "task_loss", "soft_loss", "hard_loss", "accuracy")}
          for r in steps]) + f"; eval {history[0]}")
@@ -2332,12 +2350,12 @@ def fusion_zoo_check(label):
 
 def fusion_argv(root, ckdir, kind):
     """``cli.train_teacher`` at the full width of ``preset("mfm_teacher")``
-    on phase 6's tree: 2 steps of 16 episodes and an 8-episode eval."""
+    on phase 6's tree: 2 steps of 4 episodes and a 4-episode eval."""
     return ["--preset", "mfm_teacher", "--dataset", "hmdb", "--feature_root",
             str(root), "--traintestlist", str(root / "splits"),
-            "--tasks_per_batch", str(TRAIN_EPISODES), "--training_iterations",
-            str(TRAIN_EPISODES * TRAIN_STEPS), "--test_iters",
-            str(TRAIN_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
+            "--tasks_per_batch", str(CLI_EPISODES), "--training_iterations",
+            str(CLI_EPISODES * TRAIN_STEPS), "--test_iters",
+            str(CLI_EPISODES * TRAIN_STEPS), "--num_test_tasks", str(EVAL_TASKS),
             "--print_freq", "1", "-c", str(ckdir), "--fusion", kind,
             "--device", "cuda"]
 
@@ -2368,7 +2386,7 @@ def fusion_cli_train(label, kind, argv, ckdir):
         raise AssertionError(f"bad {kind} training metrics {steps}")
     if len(history) != 1 or not math.isfinite(history[0]["accuracy"]):
         raise AssertionError(f"bad {kind} mid-training eval {history}")
-    n_eps = TRAIN_STEPS * TRAIN_EPISODES
+    n_eps = TRAIN_STEPS * CLI_EPISODES
     log(f"[fusion] {kind} per-step metrics: " + json.dumps(
         [{k: r[k] for k in ("step", "task_loss", "accuracy")} for r in steps])
         + f"; eval {history[0]}")
@@ -2667,7 +2685,7 @@ def serving_path(label, run_root):
     from litemkd_torch.tools import aot, pipeline_bench, shrink_dataset
     from litemkd_torch.train import make_mfm
     t_phase = time.perf_counter()
-    n_eps = TRAIN_EPISODES * TRAIN_STEPS
+    n_eps = CLI_EPISODES * TRAIN_STEPS
     run, mfm_run = run_root / "video_run", run_root / "mfm"
     ckpt, mfm_ckpt = run / f"checkpoint_{n_eps}.pt", mfm_run / f"checkpoint_{n_eps}.pt"
     out = run_root / "serving"
@@ -3014,7 +3032,7 @@ def analysis_path(label, run_root):
                 [str(repo)] + os.environ.get("PYTHONPATH", "").split(os.pathsep))))
     dp_secs = time.perf_counter() - t0
     text = (run_root / "torchrun.log").read_text()
-    if r.returncode != 0 or "data-parallel over 1 ranks" not in text:
+    if r.returncode != 0 or "mesh 1x1 over 1 ranks" not in text:
         raise AssertionError(f"torch.distributed.run cli.train exit {r.returncode}: "
                              f"{text[-3000:]}")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3028,6 +3046,308 @@ def analysis_path(label, run_root):
     dp_step_time(label)
     log(f"[analysis] phase 13 launches {total}; took "
         f"{time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training: the mesh's model axis (phase 14)
+# ---------------------------------------------------------------------------
+
+# 4-episode steps: one micro-batch chunk of the flagship, the same count for
+# the MFM (the host draws the flagship's synthetic clips at ~1.9 s an episode)
+TP_EPISODES = 4
+TP_STUDENT_ARGV = ["--preset", "student_fc2sup_dist", "--dataset", "synthetic",
+                   "--pallas_bn", "--tasks_per_batch", str(TP_EPISODES),
+                   "--micro_batch", str(TP_EPISODES), "--training_iterations",
+                   str(2 * TP_EPISODES), "--print_freq", "1", "--device", "cuda"]
+# on phase 6's feature tree (at the synthetic source's noise every CE is 0)
+TP_MFM_ARGV = ["--preset", "mfm_teacher", "--dataset", "hmdb",
+               "--tasks_per_batch", str(TP_EPISODES), "--training_iterations",
+               str(2 * TP_EPISODES), "--print_freq", "1", "--device", "cuda"]
+
+
+def tp_mfm_argv(run_root):
+    tree = run_root / "tree"
+    return TP_MFM_ARGV + ["--feature_root", str(tree), "--traintestlist",
+                          str(tree / "splits")]
+
+
+def tp_configs():
+    """The flagship (BN kernels on, 16 episodes in chunks of 4) and the MFM
+    (16 episodes at once) as their device-resident steps run."""
+    base = preset("student_fc2sup_dist")
+    student = base.replace(model=dataclasses.replace(base.model, pallas_bn=True))
+    return {"student_fc2sup_dist": (
+                student, lambda: create_train_state(student, "cuda"),
+                make_train_step, lambda: device_batch(student, TRAIN_EPISODES)),
+            "mfm_teacher": (
+                preset("mfm_teacher"),
+                lambda: create_mfm_train_state(preset("mfm_teacher"), "cuda"),
+                make_mfm_train_step,
+                lambda: mfm_device_batch(preset("mfm_teacher"), TRAIN_EPISODES, True))}
+
+
+def tp_step_times(dp=None):
+    """Each model's full-width step on a batch made on the card from a seed:
+    the first step's loss, the device ms of the next 3 (CUDA events), the
+    kernel launches of one more and the peak memory: one card (``dp``
+    None) or this rank's share of a tensor-parallel step over ``dp``'s
+    mesh."""
+    from litemkd_torch.train import shard_train_state
+    out = {}
+    for name, (cfg, make, make_step, make_batch) in tp_configs().items():
+        state = make()
+        if dp is not None:
+            shard_train_state(state, dp.axis)
+        step, batch = make_step(cfg, dp), make_batch()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(step(state, batch)["task_loss"])
+        ms = cuda_ms(lambda: step(state, batch), 3, warmup=0)
+        zero_counts()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out[name] = dict(loss=loss, ms=ms, launches=read_counts(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_layers_check(label):
+    """Phase 14 on one card: the flagship student (with its frozen teacher)
+    and the MFM at full width, cut by ``shard_model`` at M = 1 over a
+    one-rank NCCL group (every parallel module built, every collective
+    run), against the unsharded models from the same seed on the same
+    batch: the loss (rel 1e-4) and the gradients (their difference's norm
+    within 1e-3 of theirs; the largest elementwise deviation is printed:
+    where the row layers add their bias after the product, not in it, a
+    last-bit change can flip a ReLU at its kink in the MFM's MLPs, and
+    that moves single elements by up to ~1e-2 of max|g|, measured on the
+    card).
+    The student runs its trunk in fp32 here, on 2 episodes: in bf16 a
+    last-bit change in the head's gradient moves the trunk's by bf16
+    steps (1e-2 of the largest, measured at tiny width on the CPU), which
+    would hide what this checks. Returns the launches of the two
+    tensor-parallel steps, counted around them alone."""
+    import torch.distributed as dist
+    from litemkd_torch.parallel import ModelAxis, sharded_parameters
+    from litemkd_torch.train import shard_train_state
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    total = dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0)
+    try:
+        axis = ModelAxis(dist.group.WORLD, 1, 0)
+        for name, (cfg, make, make_step, _) in tp_configs().items():
+            if name.startswith("student"):
+                e = 2
+                cfg = cfg.replace(model=dataclasses.replace(
+                    cfg.model, compute_dtype="float32"))
+                batch = device_batch(cfg, e)
+                make = functools.partial(create_train_state, cfg, "cuda")
+            else:
+                e = TP_EPISODES
+                batch = mfm_device_batch(cfg, e, True)
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, tasks_per_batch=e,
+                micro_batch=e if cfg.train.micro_batch else 0))
+            step = make_step(cfg)
+            plain = make()
+            want = float(step(plain, batch)["task_loss"])
+            tp = shard_train_state(make(), axis)
+            n_cut = len(sharded_parameters(tp.model))
+            zero_counts()
+            got = float(step(tp, batch)["task_loss"])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            total = {k: total[k] + counts[k] for k in total}
+            grads = {n: p.grad for n, p in plain.model.named_parameters()
+                     if p.grad is not None}
+            g_max = max(float(g.abs().max()) for g in grads.values())
+            err, worst = max((float((p.grad - grads[n]).abs().max()), n)
+                             for n, p in tp.model.named_parameters()
+                             if p.grad is not None)
+            rel = math.sqrt(sum(float(((p.grad - grads[n]).double() ** 2).sum())
+                                for n, p in tp.model.named_parameters()
+                                if p.grad is not None)
+                            / sum(float((g.double() ** 2).sum())
+                                  for g in grads.values()))
+            plain_ms = cuda_ms(lambda: step(plain, batch), 3, warmup=1)
+            tp_ms = cuda_ms(lambda: step(tp, batch), 3, warmup=1)
+            log(f"[tp] {name} at full width, {n_cut} weights cut by shard_model at "
+                f"M = 1 (one-rank NCCL group): task_loss {got:.6f} vs {want:.6f} "
+                f"unsharded; gradients off by {rel:.3e} in norm, at most "
+                f"{err / g_max:.3e} of max|g| ({worst}); "
+                f"launches {counts}; {e}-episode step {tp_ms:.3f} ms vs "
+                f"{plain_ms:.3f} ms unsharded; {label}")
+            if not abs(got - want) <= 1e-4 * abs(want) or not rel <= 1e-3:
+                raise AssertionError(f"tensor-parallel {name} at M = 1: loss {got} vs "
+                                     f"{want}, gradients off by {rel} in norm")
+            if n_cut == 0 or counts["tct_attention"] == 0:
+                raise AssertionError(f"{name}: {n_cut} weights cut, launches {counts}")
+            del plain, tp, batch, grads
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def tp_worker(out_dir, d, m, tasks):
+    """One rank of ``chip_smoke.py --tp-worker OUT D M TASKS`` under
+    ``torch.distributed.run`` (one card a rank): ``cli`` runs
+    ``cli.train_teacher`` and ``cli.train`` at (D, M) with the launches
+    read around each; ``time`` the device-resident steps of
+    :func:`tp_step_times`; ``test`` ``cli.test`` of the student checkpoint
+    that the ``cli`` task of an earlier call wrote. Writes
+    ``OUT/rank<r>.json``."""
+    from litemkd_torch.cli.common import setup_data_parallel
+    from litemkd_torch.config import MeshConfig
+    out = Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flags = ["--mesh_data", str(d), "--mesh_model", str(m)]
+    dp, _ = setup_data_parallel(preset("tiny").replace(mesh=MeshConfig(d, m)),
+                                "cuda")
+    res = {"rank": dp.rank}
+    if "cli" in tasks:
+        for name, cli, argv in (("mfm", cli_teacher.main, tp_mfm_argv(out.parent)),
+                                ("student", cli_train.main, TP_STUDENT_ARGV)):
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli(argv + flags + ["-c", str(out / name)])
+            torch.cuda.synchronize()
+            res[name] = dict(launches=read_counts(),
+                             seconds=time.perf_counter() - t0)
+    if "time" in tasks:
+        res["steps"] = tp_step_times(dp)
+    if "test" in tasks:
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res["test"] = cli_test.main(
+                ["-m", str(out.parent / "tp_1x2" / "student" / "checkpoint_8.pt"),
+                 "--num_test_tasks", "8", "--device", "cuda"] + flags)
+        res["test_launches"] = read_counts()
+    with open(out / f"rank{dp.rank}.json", "w") as f:
+        json.dump(res, f)
+    dp.barrier()
+
+
+def _tp_run(run_root, d, m, tasks):
+    """``chip_smoke.py --tp-worker`` over D·M cards; every rank's record."""
+    repo = Path(__file__).resolve().parent
+    out = run_root / f"tp_{d}x{m}"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out / "torchrun.log", "w") as f:
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+             str(d * m), "--master_addr", "localhost", "--master_port",
+             str(_free_port()), str(repo / "chip_smoke.py"), "--tp-worker",
+             str(out), str(d), str(m), tasks],
+            cwd=repo, stdout=f, stderr=subprocess.STDOUT, timeout=900,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(repo)] + os.environ.get("PYTHONPATH", "").split(os.pathsep))))
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"tensor-parallel run at ({d}, {m}) exit {r.returncode}: "
+                             f"{(out / 'torchrun.log').read_text()[-4000:]}")
+    return [json.loads((out / f"rank{k}.json").read_text())
+            for k in range(d * m)], secs
+
+
+def _losses(ckdir):
+    return [r["task_loss"] for r in _train_records(ckdir)]
+
+
+def tp_cards_path(label, run_root):
+    """Phase 14 over several cards (NCCL, one rank a card): ``cli.train_teacher
+    --preset mfm_teacher`` and ``cli.train --preset student_fc2sup_dist`` at
+    (data 1, model 2), 2 steps of 4 episodes each (the MFM on phase 6's
+    feature tree, written here where it is missing), against the same
+    commands on one card (the MFM's losses rel 1e-4; the student's first
+    step rel 1e-4, its second, after an update through the bf16 trunk,
+    reported), with each rank's launches; the device-resident steps per
+    rank at M = 2 (and 4) beside one card's (the first step's loss rel
+    1e-4, the launches equal); on four cards ``cli.test`` of the student's
+    checkpoint at (2, 2). Returns the launches of rank 0's CLI runs, or
+    None below 2 cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[tp] the cross-card tensor-parallel runs need 2 cards; this machine "
+            f"has {n}: the model axis ran at M = 1 only; {label}")
+        return None
+    if not (run_root / "tree").exists():
+        write_feature_tree(run_root / "tree", preset("mfm_teacher").episode.seq_len,
+                           preset("mfm_teacher").model.trans_linear_in_dim)
+    ref = {}
+    for name, cli, argv in (("mfm", cli_teacher.main, tp_mfm_argv(run_root)),
+                            ("student", cli_train.main, TP_STUDENT_ARGV)):
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli(argv + ["-c", str(run_root / "tp_ref" / name)])
+        ref[name] = (_losses(run_root / "tp_ref" / name), read_counts())
+    one = tp_step_times()
+    ranks, secs = _tp_run(run_root, 1, 2, "cli,time")
+    total = dict(tct_attention=0, bn_sums=0, bn_bwd_sums=0)
+    for name in ("mfm", "student"):
+        got = _losses(run_root / "tp_1x2" / name)
+        want, launches = ref[name]
+        per_rank = [r[name]["launches"] for r in ranks]
+        log(f"[tp] cli {name} at (data 1, model 2) on 2 cards: task_loss {got} vs "
+            f"{want} on one card; launches per rank {per_rank} (one card {launches}); "
+            f"{label}")
+        steps = got if name == "mfm" else got[:1]
+        if len(got) != len(want) or not all(
+                abs(a - b) <= 1e-4 * abs(b) for a, b in zip(steps, want)):
+            raise AssertionError(f"tensor-parallel {name} losses {got} != {want}")
+        if any(p != launches for p in per_rank):
+            raise AssertionError(f"{name}: launches per rank {per_rank} != {launches}")
+        total = {k: total[k] + per_rank[0][k] for k in total}
+    meshes = {(1, 2): ranks}
+    if n >= 4:
+        meshes[(1, 4)], _ = _tp_run(run_root, 1, 4, "time")
+        test_ranks, _ = _tp_run(run_root, 2, 2, "test")
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = cli_test.main(["-m", str(run_root / "tp_1x2" / "student" /
+                                            "checkpoint_8.pt"),
+                                  "--num_test_tasks", "8", "--device", "cuda"])
+        got = test_ranks[0]["test"]
+        log(f"[tp] cli.test of the (1, 2) checkpoint at (data 2, model 2): "
+            f"{got} vs {want} on one card; launches per rank "
+            f"{[r['test_launches'] for r in test_ranks]}; {label}")
+        if abs(got["accuracy"] - want["accuracy"]) > 1e-4 or \
+                got["n_tasks"] != want["n_tasks"]:
+            raise AssertionError(f"sharded eval {got} != {want}")
+    for (d, m), rs in meshes.items():
+        for name in one:
+            steps = [r["steps"][name] for r in rs]
+            log(f"[tp] {name} device step ({TRAIN_EPISODES} episodes) at (data {d}, "
+                f"model {m}): first task_loss {steps[0]['loss']:.6f} (one card "
+                f"{one[name]['loss']:.6f}); per rank ms "
+                f"{[round(x['ms'], 3) for x in steps]}, peak GiB "
+                f"{[round(x['peak_gib'], 3) for x in steps]}, launches "
+                f"{steps[0]['launches']}; one card {one[name]['ms']:.3f} ms, "
+                f"{one[name]['peak_gib']:.3f} GiB, launches {one[name]['launches']}; "
+                f"{label}")
+            if not all(abs(x["loss"] - one[name]["loss"])
+                       <= 1e-4 * abs(one[name]["loss"]) for x in steps) or \
+                    any(x["launches"] != one[name]["launches"] for x in steps):
+                raise AssertionError(f"tensor-parallel {name} step at ({d}, {m}): "
+                                     f"{steps} vs one card {one[name]}")
+    log(f"[tp] cross-card runs took {secs:.2f} s of command at (1, 2)")
+    return total
+
+
+def tp_path(label, run_root):
+    """Phase 14: the model axis at M = 1 on this card, then across cards
+    where there are several. Returns the launches of the path's runs."""
+    t0 = time.perf_counter()
+    total = tp_layers_check(label)
+    cards = tp_cards_path(label, run_root)
+    if cards is not None:
+        total = {k: total[k] + cards[k] for k in total}
+    log(f"[tp] phase 14 launches {total}; took {time.perf_counter() - t0:.2f} s")
     return total
 
 
@@ -3124,6 +3444,8 @@ def main():
         serve_counts = serving_path(smi.splitlines()[0], run_root)
         # 13. analysis tools and data-parallel training
         analysis_counts = analysis_path(smi.splitlines()[0], run_root)
+        # 14. the mesh's model axis: tensor-parallel training and eval
+        tp_counts = tp_path(smi.splitlines()[0], run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     expert_device_rate(smi.splitlines()[0])
@@ -3163,14 +3485,16 @@ def main():
                        + student_zoo_counts["tct_attention"]
                        + fusion_counts["tct_attention"]
                        + serve_counts["tct_attention"]
-                       + analysis_counts["tct_attention"]),
+                       + analysis_counts["tct_attention"]
+                       + tp_counts["tct_attention"]),
              max_abs_err=err_eval, **tct_times["eval"]),
         dict(name="bn_sums", route="cuda", source="litemkd_torch/csrc/bn_moments.cu",
              replaces="litemkd_tpu/ops/pallas_bn.py:73",
              launches=(counts["bn_sums"] + video_counts["bn_sums"]
                        + expert_counts["bn_sums"] + zoo_counts["bn_sums"]
                        + student_zoo_counts["bn_sums"] + fusion_counts["bn_sums"]
-                       + analysis_counts["bn_sums"]),
+                       + analysis_counts["bn_sums"]
+                       + tp_counts["bn_sums"]),
              max_abs_err=bn_err, **bn_times["sums"]),
         dict(name="bn_bwd_sums", route="cuda",
              source="litemkd_torch/csrc/bn_moments.cu",
@@ -3179,7 +3503,8 @@ def main():
                        + expert_counts["bn_bwd_sums"] + zoo_counts["bn_bwd_sums"]
                        + student_zoo_counts["bn_bwd_sums"]
                        + fusion_counts["bn_bwd_sums"]
-                       + analysis_counts["bn_bwd_sums"]),
+                       + analysis_counts["bn_bwd_sums"]
+                       + tp_counts["bn_bwd_sums"]),
              max_abs_err=bn_err,
              **bn_times["bwd_sums"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
@@ -3188,4 +3513,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5].split(","))
+        sys.exit(0)
     sys.exit(main())

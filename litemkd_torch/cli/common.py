@@ -4,7 +4,8 @@ MFM-teacher and extraction paths read, copied from
 ``train_teacher``/``extract``/``pretrain`` CLIs (same names, same mapping
 onto the typed Config), plus ``--device``, the sampler, fixed-episode
 files and the device choice. ``--mesh_data``/``--mesh_model`` set
-``cfg.mesh``, the layout of the ranks under ``torchrun``
+``cfg.mesh``, the layout of the ranks under ``torchrun``: replicas of the
+episode batch and shards of the wide projections
 (:func:`setup_data_parallel`). ``--pallas_tct`` sets ``model.use_pallas``
 and nothing else (a CUDA tensor always launches the TCT kernel);
 ``--wandb`` reaches the training CLIs' :class:`MetricsLogger`.
@@ -342,15 +343,16 @@ def setup_data_parallel(cfg: Config, device=None):
     (:func:`~litemkd_torch.parallel.init_distributed`; on ``cuda`` the card
     of its ``LOCAL_RANK``) and returns its
     :class:`~litemkd_torch.parallel.DataParallel`. Over more than one rank
-    ``cfg.mesh`` must lay the ranks out (JAX's ``make_mesh`` rules) with a
-    ``model`` axis of 1: the port runs the ``data`` axis alone."""
-    from ..parallel import check_data_parallel, init_distributed, make_mesh
+    ``cfg.mesh`` lays the ranks out (JAX's ``make_mesh`` rules and errors):
+    ``data`` replicas, each cut over ``model`` ranks (its groups are
+    created here)."""
+    from ..parallel import init_distributed, make_mesh
     device = resolve_device(device)
     dp = init_distributed(device)
     if dp is None:
         return None, device
     if dp.world > 1:
-        check_data_parallel(make_mesh(cfg.mesh, dp.world))
+        dp = dp.with_mesh(make_mesh(cfg.mesh, dp.world))
     return dp, dp.device
 
 

@@ -24,13 +24,15 @@ in training). ``--fixed_episode_file`` replays the episodes of a file that
 (``tools/confusion.py`` reads them). Prints mean accuracy ×100 with the
 196·std/√n confidence interval. Runs on cuda unless ``--device`` says
 otherwise, with TF32 off in matrix products and convolutions (the bf16
-trunk is unaffected). Under ``torchrun`` the eval is sharded over the ranks
-(each evaluates its slice of every chunk; the results are gathered in task
-order, and ``n_tasks`` is rounded to whole chunks), with the summary and
-``--per_task_log`` of one process:
+trunk is unaffected). Under ``torchrun`` the eval is sharded over the
+replicas of ``--mesh_data`` (each evaluates its slice of every chunk; the
+results are gathered in task order, and ``n_tasks`` is rounded to whole
+chunks) and the model over the ranks of ``--mesh_model``, with the summary
+and ``--per_task_log`` of one process:
 
-    python -m torch.distributed.run --nproc_per_node 2 \
-        -m litemkd_torch.cli.test -m DIR/checkpoint_N.pt --mesh_data 2
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m litemkd_torch.cli.test -m DIR/checkpoint_N.pt --mesh_data 2 \
+        --mesh_model 2
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from ..ops.dtypes import set_fp32_math
 from ..parallel import shutdown
 from ..tools.weights import (load_reference_checkpoint,
                              teacher_state_dict_from_reference)
+from ..parallel import shard_model
 from ..train import make_eval_step, make_teacher_eval_step, run_eval
 from .common import (add_common_args, add_device_arg, add_test_args,
                      build_config, build_sampler, load_fixed_specs,
@@ -109,6 +112,8 @@ def main(argv=None):
     else:
         model = load_student(cfg, args.test_model_path, device)
         eval_step = make_eval_step(cfg, with_preds=with_preds)
+    if dp is not None and dp.axis is not None:
+        shard_model(model, dp.axis)
     if args.test_model_path and writer:
         print(f"loaded torch checkpoint {args.test_model_path}")
     specs = load_fixed_specs(cfg, sampler)

@@ -28,13 +28,16 @@ init); otherwise both get random weights from the seed. Checkpoints and
 (as in the JAX package the CLI reads a teacher tree and runs the frozen
 teacher head, whose logits ``TRXLoss`` ignores).
 
-Data-parallel over several processes (one per card; gloo on the CPU), each
-rank drawing its share of every batch (``litemkd_torch.parallel``); rank 0
-writes the checkpoints, ``config.json`` and the logs:
+Data- and tensor-parallel over several processes (one per card; gloo on
+the CPU; ``litemkd_torch.parallel``): ``--mesh_data D --mesh_model M``
+over D·M ranks, each replica of M ranks drawing its share of every batch
+and cutting the wide projections (the TCT's k/v maps, the backbone's
+fc1/fc2) over its ranks. Rank 0 writes the checkpoints (in the one-process
+layout), ``config.json`` and the logs:
 
     python -m torch.distributed.run --nproc_per_node 4 \
         -m litemkd_torch.cli.train --preset student_fc2sup_dist \
-        --mesh_data 4 ... -c DIR
+        --mesh_data 2 --mesh_model 2 ... -c DIR
 """
 from __future__ import annotations
 
@@ -83,8 +86,9 @@ def main(argv=None):
         use_wandb=args.wandb and writer, quiet=not writer)
     logger.info(f"config:\n{cfg.to_json()}")
     if dp is not None:
-        logger.info(f"data-parallel over {dp.world} ranks "
-                    f"({cfg.train.tasks_per_batch // dp.world} episodes each)")
+        logger.info(f"mesh {dp.data}x{dp.model} over {dp.world} ranks "
+                    f"({cfg.train.tasks_per_batch // dp.data} episodes a "
+                    "replica)")
     if writer:
         save_run_config(cfg)
     if dp is not None:

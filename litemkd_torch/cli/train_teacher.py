@@ -24,8 +24,15 @@ from it, or ``--test_only`` evaluates it (replaying
 ``--fixed_episode_file`` where one is given; pass the run's ``--fusion``
 again). Runs on cuda unless ``--device`` says otherwise, in fp32 with TF32
 off. Checkpoints and ``config.json`` go to ``-c``. Under ``torchrun`` the
-training is data-parallel (each rank draws its share of every batch, the
-gradients are summed over the ranks; rank 0 writes) and the eval sharded.
+training is data-parallel over ``--mesh_data`` replicas (each draws its
+share of every batch, the gradients are summed over them; rank 0 writes)
+and tensor-parallel over the ``--mesh_model`` ranks of a replica (the
+encoders' attention and MLP, the stream fusions' ``f1`` and the TCT's k/v
+maps cut over them), and the eval is sharded alike:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m litemkd_torch.cli.train_teacher --preset mfm_teacher \
+        --mesh_data 1 --mesh_model 2 --feature_root R ... -c DIR
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from ..parallel import shutdown
 from ..tools.weights import load_reference_fusion_state_dict
 from ..train import (CheckpointManager, EpisodeBatch, create_mfm_train_state,
                      make_mfm_eval_step, make_mfm_train_step, run_eval,
-                     train_loop, verify_checkpoint_dir)
+                     shard_train_state, train_loop, verify_checkpoint_dir)
 from ..train.teacher_steps import load_tsf_branches
 from ..utils.logging import MetricsLogger
 from .common import (add_common_args, add_device_arg, add_fusion_args,
@@ -180,6 +187,7 @@ def main(argv=None):
 
     eval_step = make_mfm_eval_step(cfg)
     if args.test_only:
+        shard_train_state(state, dp.axis if dp is not None else None)
         specs = load_fixed_specs(cfg, sampler)
         s = run_eval(cfg, state.model.eval(), sampler,
                      n_tasks=len(specs) if specs else cfg.train.num_test_tasks,

@@ -110,6 +110,15 @@ def _conv_bn(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
     return nn.Sequential(*layers)
 
 
+def _fc(fc: nn.Module, s: torch.Tensor) -> torch.Tensor:
+    """A 1×1 convolution of (N, C) as a product at ``s``'s dtype; a
+    column-parallel shard of one (``litemkd_torch.parallel``) computes it
+    itself."""
+    if isinstance(fc, nn.Conv2d):
+        return F.linear(s, fc.weight.flatten(1).to(s.dtype), fc.bias.to(s.dtype))
+    return fc(s)
+
+
 class SqueezeExcite(nn.Module):
     """torchvision's ``SqueezeExcitation``: spatial mean, ``fc1`` (1×1
     conv), ReLU, ``fc2``, hard-sigmoid, channel scale. The products run in
@@ -124,10 +133,7 @@ class SqueezeExcite(nn.Module):
         adt = anchor_dtype(x.dtype)
         with torch.autocast(x.device.type, enabled=False):
             s = x.mean(dim=(2, 3)).to(adt)
-            s = F.relu(F.linear(s, self.fc1.weight.flatten(1).to(adt),
-                                self.fc1.bias.to(adt)))
-            s = hard_sigmoid(F.linear(s, self.fc2.weight.flatten(1).to(adt),
-                                      self.fc2.bias.to(adt)))
+            s = hard_sigmoid(_fc(self.fc2, F.relu(_fc(self.fc1, s))))
         return x * s[:, :, None, None].to(x.dtype)
 
 

@@ -220,11 +220,11 @@ bn_bwd_sums.launches = 0
 
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, weight, bias, eps, world):
+    def forward(ctx, x2, weight, bias, eps, world, group):
         r = x2.shape[0] * world
         sums = bn_sums(x2)
         if world > 1:
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=group)
         mean = sums[0] / r
         var = torch.clamp_min(sums[1] / r - mean * mean, 0.0)  # E[x²]−E[x]²
         inv = torch.rsqrt(var + eps)
@@ -232,7 +232,7 @@ class _BatchNormTrain(torch.autograd.Function):
         shift = bias.to(torch.float32) - mean * scale
         y = (x2.to(torch.float32) * scale).add_(shift).to(x2.dtype)
         ctx.save_for_backward(x2, weight, mean, inv)
-        ctx.world = world
+        ctx.world, ctx.group = world, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -247,7 +247,7 @@ class _BatchNormTrain(torch.autograd.Function):
         local = sums
         if ctx.world > 1:
             sums = sums.clone()
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=ctx.group)
         s_dy, s_dyxh = sums[0], sums[1]
         # dx = γσ⁻¹(dy − Σdy/R − x̂·Σdy·x̂/R) = a·dy + b·x + c per channel
         a = weight.to(torch.float32) * inv
@@ -256,39 +256,40 @@ class _BatchNormTrain(torch.autograd.Function):
         dx = (gy.to(torch.float32) * a).add_(x2.to(torch.float32) * b)
         dx = dx.add_(c).to(x2.dtype)
         return (dx, local[1].to(weight.dtype), local[0].to(weight.dtype),
-                None, None)
+                None, None, None)
 
 
 def batch_norm_train(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     eps: float = 1e-5, *, world: int = 1
+                     eps: float = 1e-5, *, world: int = 1, group=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode BN of a channels-last (R, C) activation → ``(y, batch
     mean, biased batch var)``. y has x's dtype; mean and var are fp32 and
     carry no gradient (they feed the running-stat update). The moments come
     from :func:`bn_sums` / :func:`bn_bwd_sums` (the kernels on the card).
 
-    ``world`` > 1: the batch is the rows of every rank of the default
-    process group (the same R on each), so both moment sums are summed over
-    the ranks before use (a synchronised BatchNorm); γ and β get this
-    rank's share of their gradient."""
-    return _BatchNormTrain.apply(x2, weight, bias, eps, world)
+    ``world`` > 1: the batch is the rows of every rank of ``group`` (the
+    default process group where None; the same R on each), so both moment
+    sums are summed over the ranks before use (a synchronised BatchNorm);
+    γ and β get this rank's share of their gradient."""
+    return _BatchNormTrain.apply(x2, weight, bias, eps, world, group)
 
 
 @contextlib.contextmanager
-def synced_moments(model: nn.Module, world: int):
+def synced_moments(model: nn.Module, world: int, group=None):
     """Within this block every :class:`BatchNorm` of ``model`` that takes
-    batch moments in training takes them over ``world`` ranks
-    (:func:`batch_norm_train` with ``world``); 1 leaves them local. The
+    batch moments in training takes them over the ``world`` ranks of
+    ``group`` (:func:`batch_norm_train`); 1 leaves them local. The
     data-parallel train step enters it where one micro-batch chunk spans
-    every rank, forward and backward both."""
+    every replica, forward and backward both, with the data group of the
+    rank's model index."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in bns:
-        m.sync_world = world
+        m.sync_world, m.sync_group = world, group
     try:
         yield
     finally:
         for m in bns:
-            m.sync_world = 1
+            m.sync_world, m.sync_group = 1, None
 
 
 def channels_last_rows(x: torch.Tensor) -> torch.Tensor:
@@ -336,6 +337,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.freeze_bn = freeze_bn
         self.recomputing = False
         self.sync_world = 1
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.freeze_bn:
@@ -352,7 +354,8 @@ class BatchNorm(nn.BatchNorm2d):
             rows = (channels_last_rows(x) if self.pallas_bn
                     else x.permute(0, 2, 3, 1).reshape(n * h * w, c))
             y, mean, var = batch_norm_train(rows, self.weight, self.bias,
-                                            self.eps, world=self.sync_world)
+                                            self.eps, world=self.sync_world,
+                                            group=self.sync_group)
             if update:
                 with torch.no_grad():
                     self.running_mean.mul_(1 - m).add_(mean, alpha=m)

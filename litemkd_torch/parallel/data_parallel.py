@@ -1,8 +1,11 @@
-"""Data-parallel training over the ranks of a process group: what each rank
-does around the one-process step so that a step of ``world`` ranks, each on
-its ``E / world`` episodes, equals the JAX package's step on the ranks'
-shards concatenated in rank order (its ``data``-sharded step,
-``litemkd_tpu/train/steps.py:136-211`` under a mesh).
+"""Data-parallel training over the replicas of a mesh: what each rank
+does around the one-process step so that a step of ``data`` replicas, each
+on its ``E / data`` episodes, equals the JAX package's step on the
+replicas' shards concatenated in data order (its ``data``-sharded step,
+``litemkd_tpu/train/steps.py:136-211`` under a mesh). Without a model
+axis a replica is a rank; with one (:mod:`.tensor_parallel`) every
+reduction here runs over the data group of the rank's model index, so each
+shard is summed with its own kind.
 
 - **Gradients are summed** over the ranks, not averaged: the loss is the
   SUM of the per-episode losses (the reference sums 16 episodes before it
@@ -40,10 +43,16 @@ from ..ops.batch_norm import BatchNorm
 from .multihost import DataParallel, local_episode_count
 
 
+def replicas(dp) -> int:
+    """The data replicas of a rank's group: its mesh's ``data`` axis (every
+    rank where the group has no mesh)."""
+    return getattr(dp, "data", dp.world)
+
+
 def chunk_layout(micro: int, episodes: int, world: int) -> str:
     """``"span"`` or ``"local"`` (see the module note) for a batch of
-    ``episodes`` in chunks of ``micro`` over ``world`` ranks; raises on a
-    chunk that would span only some of the ranks."""
+    ``episodes`` in chunks of ``micro`` over ``world`` replicas; raises on a
+    chunk that would span only some of them."""
     local = local_episode_count(episodes, world)
     if not micro or micro >= episodes:
         return "span"
@@ -70,7 +79,7 @@ def check_sync_batch_norm(model: nn.Module, allowed=(BatchNorm,)) -> None:
 
 
 def all_reduce_grads(model: nn.Module, dp: DataParallel) -> None:
-    """Sum every parameter's ``.grad`` over the ranks, in one flat
+    """Sum every parameter's ``.grad`` over the replicas, in one flat
     all-reduce per dtype."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in model.parameters():
@@ -84,10 +93,10 @@ def all_reduce_grads(model: nn.Module, dp: DataParallel) -> None:
 
 def reduce_metrics(metrics: Dict[str, torch.Tensor],
                    dp: DataParallel) -> Dict[str, torch.Tensor]:
-    """``task_loss`` summed over the ranks, every other scalar averaged."""
+    """``task_loss`` summed over the replicas, every other scalar averaged."""
     names = list(metrics)
     flat = dp.all_reduce_(torch.stack([metrics[k].float() for k in names]))
-    return {k: flat[i] if k == "task_loss" else flat[i] / dp.world
+    return {k: flat[i] if k == "task_loss" else flat[i] / dp.data
             for i, k in enumerate(names)}
 
 
@@ -121,9 +130,9 @@ def reconcile_running_stats(model: nn.Module, before, dp: DataParallel) -> None:
                   ).repeat(2)
         for m, (_, _, n0) in zip(mods, before)])
     d = dp.gather((now - decay * r0)[None])
-    out = decay ** dp.world * r0
-    for k in range(dp.world):
-        out = out + decay ** (dp.world - 1 - k) * d[k]
+    out = decay ** dp.data * r0
+    for k in range(dp.data):
+        out = out + decay ** (dp.data - 1 - k) * d[k]
     i = 0
     with torch.no_grad():
         for m, (_, _, n0) in zip(mods, before):
@@ -131,5 +140,5 @@ def reconcile_running_stats(model: nn.Module, before, dp: DataParallel) -> None:
             m.running_mean.copy_(out[i:i + c])
             m.running_var.copy_(out[i + c:i + 2 * c])
             m.num_batches_tracked.copy_(
-                n0 + (m.num_batches_tracked - n0) * dp.world)
+                n0 + (m.num_batches_tracked - n0) * dp.data)
             i += 2 * c

@@ -6,47 +6,100 @@ the processes' shards (``jax.make_array_from_process_local_data``). The port
 runs one process per card: ``torchrun`` starts them and sets ``RANK``,
 ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, and
 :func:`init_distributed` joins them in one process group, NCCL between
-cards and gloo on the CPU. Each rank draws its own ``E / world`` episodes of
-a batch from :func:`host_rng`, the JAX package's key, so that rank r's
-episodes are byte for byte those of JAX process r, and the global batch is
-the ranks' shards in rank order.
+cards and gloo on the CPU. Each rank draws the ``E / data`` episodes of its
+data index d from :func:`host_rng` ``(seed, d, step)``, the JAX package's
+key, so that the episodes of data index d are byte for byte those of JAX
+process d, and the global batch is the replicas' shards in data order; the
+ranks of one model group draw the same episodes. Without a model axis d
+is the rank.
 
     python -m torch.distributed.run --nproc_per_node 2 \\
         -m litemkd_torch.cli.train --preset tiny --dataset synthetic \\
         --device cpu --mesh_data 2 -c /tmp/dp
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m litemkd_torch.cli.train --preset tiny --dataset synthetic \\
+        --device cpu --mesh_data 2 --mesh_model 2 -c /tmp/tp
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .mesh import Mesh, MeshGroups
+
 
 @dataclass(frozen=True)
 class DataParallel:
     """This process's place in the group: its ``rank`` of ``world`` and the
-    ``device`` it runs on, with the collectives the data-parallel paths
-    use (over the default process group, which :func:`init_distributed`
-    set up; they run at a world size of 1 too)."""
+    ``device`` it runs on, the ``mesh`` that lays the ranks out (``data``
+    replicas of ``model`` shards; by default every rank a replica) with
+    this rank's process groups (``groups``, None while every rank is a
+    replica: the default group then serves), and the collectives of the
+    data-parallel paths, over the replicas of this rank's model index
+    (they run at one replica too)."""
 
     rank: int
     world: int
     device: torch.device
+    mesh: Optional[Mesh] = None
+    groups: Optional[MeshGroups] = None
+
+    @property
+    def layout(self) -> Mesh:
+        return self.mesh or Mesh(self.world, 1)
+
+    @property
+    def data(self) -> int:
+        """Replicas: the size of the data axis."""
+        return self.layout.data
+
+    @property
+    def model(self) -> int:
+        """Shards of a replica: the size of the model axis."""
+        return self.layout.model
+
+    @property
+    def data_index(self) -> int:
+        return self.layout.coords(self.rank)[0]
+
+    @property
+    def model_index(self) -> int:
+        return self.layout.coords(self.rank)[1]
+
+    @property
+    def data_group(self):
+        return None if self.groups is None else self.groups.data
+
+    @property
+    def axis(self):
+        """The :class:`~litemkd_torch.parallel.tensor_parallel.ModelAxis`
+        of this rank's model group, or None without a model axis."""
+        if self.model == 1:
+            return None
+        from .tensor_parallel import ModelAxis
+        return ModelAxis(self.groups.model, self.model, self.model_index)
+
+    def with_mesh(self, mesh: Mesh) -> "DataParallel":
+        """This rank over ``mesh``: with a model axis, every data and model
+        group is created (a collective over the world)."""
+        groups = mesh.groups(self.rank) if mesh.model > 1 else None
+        return replace(self, mesh=mesh, groups=groups)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place."""
-        dist.all_reduce(t)
+        """Sum ``t`` over the replicas, in place."""
+        dist.all_reduce(t, group=self.data_group)
         return t
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` (of one shape on all), concatenated along the
-        first axis in rank order, on every rank."""
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t.contiguous())
+        """Every replica's ``t`` (of one shape on all), concatenated along
+        the first axis in data order, on every rank."""
+        parts = [torch.empty_like(t) for _ in range(self.data)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
         return torch.cat(parts)
 
     def barrier(self) -> None:

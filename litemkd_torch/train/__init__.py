@@ -1,4 +1,5 @@
 from .steps import (EpisodeBatch, TrainState, create_train_state,
+                    shard_train_state,
                     make_eval_step, make_teacher_eval_step, make_train_step)
 from .loop import run_eval, run_training, to_device, train_loop
 from .checkpoint import CheckpointManager, verify_checkpoint_dir
@@ -8,6 +9,7 @@ from .teacher_steps import (create_mfm_train_state, create_pretrain_state,
                             make_pretrain_model, make_pretrain_step, sum_ce)
 
 __all__ = ["EpisodeBatch", "TrainState", "create_train_state",
+           "shard_train_state",
            "make_eval_step", "make_teacher_eval_step", "make_train_step",
            "run_eval", "run_training",
            "to_device", "train_loop", "CheckpointManager",

@@ -8,7 +8,8 @@ student, or the MFM teacher) in the reference key layout, "optimizer",
 "scheduler"}`` plus what a resume needs (``step``, ``episodes_seen``, the
 state of the dropout generator, and for a student run
 ``teacher_state_dict`` and the teacher's generator). The newest
-``max_to_keep`` files are kept. The run's ``config.json`` lies beside them,
+``max_to_keep`` files are kept. A run over a model axis writes the same
+file from rank 0, its shards gathered. The run's ``config.json`` lies beside them,
 so ``litemkd_torch.cli.test -m <file>`` (or ``train_teacher --test_only
 -m <file>``) reads its geometry from there. A directory restores on either
 device type: a generator state saved on another one (a CUDA generator's is
@@ -25,6 +26,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..parallel.tensor_parallel import (full_optimizer_state_dict,
+                                        full_state_dict,
+                                        shard_optimizer_state_dict,
+                                        shard_state_dict)
 from .steps import TrainState, dropout_seeds
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
@@ -53,11 +58,17 @@ class CheckpointManager:
         saved = self._saved()
         return saved[-1] if saved else None
 
-    def save(self, state: TrainState) -> str:
+    def save(self, state: TrainState, write: bool = True) -> Optional[str]:
+        """Write ``state`` (where ``write``; returns the path). A state cut
+        over a model axis is gathered first, in the one-process layout:
+        every rank of its model group must call this, and one writes."""
+        axis = getattr(state.model, "tp_axis", None)
+        if not write and axis is None:
+            return None
         payload = {
             "iteration": state.episodes_seen,
-            "model_state_dict": _cpu(state.model.state_dict()),
-            "optimizer": state.optimizer.state_dict(),
+            "model_state_dict": _cpu(full_state_dict(state.model)),
+            "optimizer": full_optimizer_state_dict(state.optimizer, axis),
             "scheduler": state.scheduler.state_dict(),
             "step": state.step,
             "episodes_seen": state.episodes_seen,
@@ -65,7 +76,9 @@ class CheckpointManager:
         }
         if state.teacher is not None:
             payload["teacher_generator"] = state.teacher_generator.get_state()
-            payload["teacher_state_dict"] = _cpu(state.teacher.state_dict())
+            payload["teacher_state_dict"] = _cpu(full_state_dict(state.teacher))
+        if not write:
+            return None
         path = self.path(state.episodes_seen)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -77,15 +90,19 @@ class CheckpointManager:
     def restore(self, state: TrainState, seed: int) -> TrainState:
         """Load the newest checkpoint into ``state`` (in place). ``seed`` is
         the run's ``cfg.train.seed``, from which a generator saved on
-        another device type is reseeded."""
+        another device type is reseeded. A state cut over a model axis
+        takes its shard of the one-process checkpoint."""
         episodes = self.latest_step()
         if episodes is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         device = next(state.model.parameters()).device
         ckpt = torch.load(self.path(episodes), map_location=device,
                           weights_only=True)
-        state.model.load_state_dict(ckpt["model_state_dict"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        axis = getattr(state.model, "tp_axis", None)
+        state.model.load_state_dict(
+            shard_state_dict(state.model, ckpt["model_state_dict"]), strict=True)
+        state.optimizer.load_state_dict(
+            shard_optimizer_state_dict(state.optimizer, ckpt["optimizer"], axis))
         state.scheduler.load_state_dict(ckpt["scheduler"])
         state.step = int(ckpt["step"])
         state.episodes_seen = int(ckpt["episodes_seen"])
@@ -94,8 +111,9 @@ class CheckpointManager:
         if state.teacher is not None:
             _set_generator(state.teacher_generator, ckpt["teacher_generator"],
                            teacher_seed, state.step)
-            state.teacher.load_state_dict(ckpt["teacher_state_dict"],
-                                          strict=True)
+            state.teacher.load_state_dict(
+                shard_state_dict(state.teacher, ckpt["teacher_state_dict"]),
+                strict=True)
         return state
 
 

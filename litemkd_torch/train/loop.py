@@ -1,5 +1,5 @@
 """Training and evaluation drivers, on one device or as one rank of a
-data-parallel run (port of ``run_eval`` and ``run_training``,
+data- and tensor-parallel run (port of ``run_eval`` and ``run_training``,
 ``litemkd_tpu/train/loop.py:25-305``).
 
 Eval: chunks are ``batch_size`` episodes plus at most one remainder chunk,
@@ -25,13 +25,14 @@ import torch
 
 from ..config import Config
 from ..data.prefetch import DeferredHostSync, Prefetcher
+from ..parallel.data_parallel import replicas
 from ..parallel.multihost import (DataParallel, host_rng, local_episode_count,
                                   shard_batch)
 from ..utils.logging import MetricsLogger
 from ..utils.metrics import TestAccuracies, real_class_preds
 from .checkpoint import CheckpointManager
 from .steps import (EpisodeBatch, TrainState, create_train_state,
-                    make_eval_step, make_train_step)
+                    make_eval_step, make_train_step, shard_train_state)
 
 
 def move_to_device(x, device: torch.device):
@@ -78,18 +79,20 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
     needs a sampler that returns episode metadata and an ``eval_step``
     built with ``with_preds`` (the default step is).
 
-    With ``dp`` over more than one rank every rank draws each chunk from
-    the same stream and evaluates its equal slice of it; the accuracies
-    (and predictions) are gathered to every rank in task order, so the
-    summary is a one-process eval's and ``task_log`` sees every task on
-    every rank. Chunks must then divide over the ranks: as the JAX
-    package's multi-process eval does, ``batch_size`` is rounded down to a
-    multiple of the world size and ``n_tasks`` to whole chunks, loudly."""
+    With ``dp`` over more than one replica every rank draws each chunk
+    from the same stream and evaluates the equal slice of it of its
+    replica (the ranks of a model group, whose ``model`` is cut over them,
+    the same slice); the accuracies (and predictions) are gathered over
+    the replicas to every rank in task order, so the summary is a
+    one-process eval's and ``task_log`` sees every task on every rank.
+    Chunks must then divide over the replicas: as the JAX package's
+    multi-process eval does, ``batch_size`` is rounded down to a multiple
+    of the data axis and ``n_tasks`` to whole chunks, loudly."""
     n_tasks = n_tasks or cfg.train.num_test_tasks
     eval_step = eval_step or make_eval_step(cfg, with_preds=task_log is not None)
     device = device or next(model.parameters()).device
     rng = np.random.default_rng(seed)
-    world = dp.world if dp is not None else 1
+    world = replicas(dp) if dp is not None else 1
     if world > 1:
         batch_size = max(batch_size // world, 1) * world
         if n_tasks % batch_size:
@@ -112,7 +115,8 @@ def run_eval(cfg: Config, model: torch.nn.Module, sampler, *,
         else:
             batch, metas[i] = sampler.sample_batch(rng, sizes[i], train=False,
                                                    return_meta=True, **kw)
-        return batch if world == 1 else shard_batch(batch, dp.rank, world)
+        return batch if world == 1 else shard_batch(batch, dp.data_index,
+                                                    world)
 
     acc = TestAccuracies()
 
@@ -190,12 +194,15 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     ``state`` first. Returns the eval history.
 
     With ``dp`` (a rank of a process group, ``train_step`` built with it)
-    and more than one rank, rank r draws its ``tasks_per_batch / world``
-    episodes of update i from :func:`~litemkd_torch.parallel.host_rng`
-    ``(seed, r, start_step + i)``, the JAX package's multi-process stream;
-    evaluation is sharded (:func:`run_eval`); every rank restores a
-    checkpoint and rank 0 alone writes them. At one rank the stream is the
-    one-process stream, so a run equals a plain one."""
+    and more than one replica, the ranks of replica d draw its
+    ``tasks_per_batch / data`` episodes of update i from
+    :func:`~litemkd_torch.parallel.host_rng` ``(seed, d, start_step + i)``,
+    the JAX package's multi-process stream; evaluation is sharded
+    (:func:`run_eval`); every rank restores a checkpoint and rank 0 alone
+    writes them. With a model axis the state is cut over it after the
+    restore (:func:`shard_train_state`), and a checkpoint is gathered back
+    to the one-process layout before rank 0 writes it. At one replica the
+    stream is the one-process stream, so a run equals a plain one."""
     logger = logger or MetricsLogger(print_freq=cfg.train.print_freq)
     eval_sampler = eval_sampler or sampler
     e_per_step = cfg.train.tasks_per_batch
@@ -206,6 +213,7 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
         if cfg.train.resume_from_checkpoint and ckpt.latest_step() is not None:
             ckpt.restore(state, cfg.train.seed)
             logger.info(f"resumed at {state.episodes_seen} episodes")
+    shard_train_state(state, dp.axis if dp is not None else None)
 
     test_marks = sorted(m for m in cfg.train.test_iters
                         if m > state.episodes_seen)
@@ -213,13 +221,13 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
     eval_history: List[dict] = []
     start_step = state.step
 
-    world = dp.world if dp is not None else 1
+    world = replicas(dp) if dp is not None else 1
     writer = dp is None or dp.rank == 0
 
     def produce(i: int) -> EpisodeBatch:
         if world > 1:
             return sampler.sample_batch(
-                host_rng(cfg.train.seed, dp.rank, start_step + i),
+                host_rng(cfg.train.seed, dp.data_index, start_step + i),
                 local_episode_count(e_per_step, world), train=True)
         return sampler.sample_batch(
             np.random.default_rng((cfg.train.seed, start_step + i)),
@@ -234,8 +242,7 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
 
         if ckpt and state.step % save_every == 0:
             deferred.flush()
-            if writer:
-                ckpt.save(state)
+            ckpt.save(state, write=writer)
 
         while test_marks and state.episodes_seen >= test_marks[0]:
             test_marks.pop(0)
@@ -249,8 +256,8 @@ def train_loop(cfg: Config, state: TrainState, sampler, train_step: Callable,
                         f"{summary['confidence']:.2f} "
                         f"({summary['n_tasks']} tasks)")
     deferred.flush()
-    if ckpt and writer:
-        ckpt.save(state)
+    if ckpt:
+        ckpt.save(state, write=writer)
     if dp is not None:
         dp.barrier()     # every checkpoint is on disk when the ranks return
     return eval_history

@@ -23,8 +23,12 @@ from ..ops.batch_norm import synced_moments
 from ..ops.positional import bind_dropout_generator
 from ..parallel.data_parallel import (all_reduce_grads, check_sync_batch_norm,
                                       chunk_layout, reconcile_running_stats,
-                                      reduce_metrics, snapshot_running_stats)
+                                      reduce_metrics, replicas,
+                                      snapshot_running_stats)
 from ..parallel.multihost import DataParallel
+from ..parallel.tensor_parallel import (ModelAxis, shard_model,
+                                        shard_optimizer_state_, squared_norm,
+                                        sync_replicated_grads_)
 from ..tools.weights import merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .schedule import make_optimizer
@@ -141,8 +145,29 @@ def _chunks(batch: EpisodeBatch, micro: int) -> Iterable[EpisodeBatch]:
                            for x in batch)) for i in range(0, e, micro)]
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+def shard_train_state(state: TrainState, axis: Optional[ModelAxis]
+                      ) -> TrainState:
+    """Cut ``state`` over the model axis, in place: the trained model, the
+    frozen teacher (the JAX package shards its variables by the same rules)
+    and the optimizer's state. Nothing without an axis or where the model
+    is cut already."""
+    if axis is None or getattr(state.model, "tp_axis", None) is not None:
+        return state
+    shard_model(state.model, axis)
+    shard_optimizer_state_(state.optimizer, axis)
+    if state.teacher is not None:
+        shard_model(state.teacher, axis)
+    return state
+
+
+def _global_norm(params, grads: bool, axis: Optional[ModelAxis]
+                 ) -> torch.Tensor:
+    """‖·‖ of the parameters (or their gradients), each counted once: a
+    sharded one summed over its model group, a replicated one taken
+    once."""
+    return torch.sqrt(squared_norm(
+        [p.grad if grads else p.detach() for p in params],
+        [getattr(p, "tp_spec", None) is not None for p in params], axis))
 
 
 def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
@@ -154,18 +179,23 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
     and per-top-module gradient and parameter norms (over the parameters
     the loss reaches).
 
-    With ``dp`` (a rank of a process group) ``batch`` is this rank's
-    ``tasks_per_batch / world`` episodes and the update is the one of the
-    ranks' shards concatenated: gradients and metrics are reduced over the
-    ranks and BatchNorm moments or running statistics synchronised, as
-    :mod:`litemkd_torch.parallel.data_parallel` sets out."""
+    With ``dp`` (a rank of a process group) ``batch`` is the
+    ``tasks_per_batch / data`` episodes of this rank's replica and the
+    update is the one of the replicas' shards concatenated: gradients and
+    metrics are reduced over the replicas and BatchNorm moments or running
+    statistics synchronised, as :mod:`litemkd_torch.parallel.data_parallel`
+    sets out. With a model axis the state must be cut over it
+    (:func:`shard_train_state`, which :func:`~litemkd_torch.train.loop.
+    train_loop` applies); the watched norms count each shard once."""
     distill = get_distiller(cfg.distill.name)
     dcfg = cfg.distill
     tpb = cfg.train.tasks_per_batch
     micro = cfg.train.micro_batch
     watch = cfg.train.watch
-    world = dp.world if dp is not None else 1
+    world = replicas(dp) if dp is not None else 1
     layout = chunk_layout(micro, tpb, world) if dp is not None else None
+    group = dp.data_group if dp is not None else None
+    axis = dp.axis if dp is not None else None
 
     def chunk_loss(state: TrainState, chunk: EpisodeBatch):
         out = state.model(chunk.support_clips, chunk.support_labels,
@@ -202,7 +232,8 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         before = (snapshot_running_stats(state.model)
                   if layout == "local" and world > 1 else None)
         sums: Dict[str, torch.Tensor] = {}
-        with synced_moments(state.model, world if layout == "span" else 1):
+        with synced_moments(state.model, world if layout == "span" else 1,
+                            group):
             for chunk in chunks:
                 loss, m = chunk_loss(state, chunk)
                 loss.backward()
@@ -211,6 +242,7 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         metrics = {k: (v if k == "task_loss" else v / len(chunks))
                    for k, v in sums.items()}
         if dp is not None:
+            sync_replicated_grads_(state.model, axis)
             all_reduce_grads(state.model, dp)
             metrics = reduce_metrics(metrics, dp)
             if before is not None:
@@ -218,13 +250,13 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         if watch:
             named = [(n, p) for n, p in state.model.named_parameters()
                      if p.grad is not None]
-            metrics["grad_norm"] = _global_norm(p.grad for _, p in named)
-            metrics["param_norm"] = _global_norm(p.detach() for _, p in named)
+            params = [p for _, p in named]
+            metrics["grad_norm"] = _global_norm(params, True, axis)
+            metrics["param_norm"] = _global_norm(params, False, axis)
             for top in dict.fromkeys(n.split(".")[0] for n, _ in named):
                 sub = [p for n, p in named if n.split(".")[0] == top]
-                metrics[f"grad_norm/{top}"] = _global_norm(p.grad for p in sub)
-                metrics[f"param_norm/{top}"] = _global_norm(p.detach()
-                                                            for p in sub)
+                metrics[f"grad_norm/{top}"] = _global_norm(sub, True, axis)
+                metrics[f"param_norm/{top}"] = _global_norm(sub, False, axis)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

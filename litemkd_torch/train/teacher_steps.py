@@ -40,8 +40,9 @@ from ..models.teacher.composer import preset_base
 from ..ops.dtypes import anchor_dtype
 from ..ops.positional import bind_dropout_generator
 from ..parallel.data_parallel import (all_reduce_grads, check_sync_batch_norm,
-                                      reduce_metrics)
+                                      reduce_metrics, replicas)
 from ..parallel.multihost import DataParallel
+from ..parallel.tensor_parallel import sync_replicated_grads_
 from ..tools.weights import load_reference_checkpoint, merge_state_dict
 from ..utils.metrics import per_episode_accuracy
 from .checkpoint import CheckpointManager
@@ -232,13 +233,16 @@ def make_mfm_train_step(cfg: Config, dp: Optional[DataParallel] = None
     forward and one backward. Metrics (device scalars): ``task_loss``, the
     summed loss, and ``accuracy``, the mean per-episode accuracy.
 
-    With ``dp`` the batch is this rank's share of the episodes, and the
-    gradients and ``task_loss`` are summed over the ranks (``accuracy``
-    averaged). No fusion kind keeps statistics across the episodes of a
-    batch (each looks at one side of one episode at a time), so nothing
-    else is shared; a module with BatchNorm statistics raises."""
+    With ``dp`` the batch is the share of the episodes of this rank's
+    replica, and the gradients and ``task_loss`` are summed over the
+    replicas (``accuracy`` averaged). No fusion kind keeps statistics
+    across the episodes of a batch (each looks at one side of one episode
+    at a time), so nothing else is shared; a module with BatchNorm
+    statistics raises. With a model axis the state must be cut over it
+    (:func:`~litemkd_torch.train.steps.shard_train_state`, which
+    :func:`~litemkd_torch.train.loop.train_loop` applies)."""
     tpb = cfg.train.tasks_per_batch
-    world = dp.world if dp is not None else 1
+    world = replicas(dp) if dp is not None else 1
 
     def train_step(state: TrainState, batch: EpisodeBatch) -> Dict:
         if dp is not None:
@@ -252,6 +256,7 @@ def make_mfm_train_step(cfg: Config, dp: Optional[DataParallel] = None
         acc = per_episode_accuracy(logits.detach(), batch.query_labels)
         metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
         if dp is not None:
+            sync_replicated_grads_(state.model, dp.axis)
             all_reduce_grads(state.model, dp)
             metrics = reduce_metrics(metrics, dp)
         state.optimizer.step()

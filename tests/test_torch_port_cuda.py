@@ -887,7 +887,7 @@ def data_parallel_against_one_device(device, world, tmp_path, timeout=300):
 
     names = sorted(os.listdir(tmp_path / "cli"))
     assert [n for n in names if n.endswith(".pt")] == ["checkpoint_4.pt"]
-    assert "ROADMAP.md §1, slice 15" in got["model_axis_error"]
+    assert got["mesh_error"] == f"{world} devices not divisible by model=3"
     return dev
 
 
@@ -907,3 +907,221 @@ def test_data_parallel_over_cards_equals_one_card(cuda_device, tmp_path, world):
                     f"{torch.cuda.device_count()}")
     dev = data_parallel_against_one_device("cuda", world, tmp_path)
     print(f"world {world}: largest gradient deviation / max|g| {dev}")
+
+
+# name → (train settings, pallas_bn) of the tensor-parallel worker: a chunk
+# spanning every replica (cuDNN BatchNorm) and chunks inside each replica
+# with the watched norms
+TP_SCENARIOS = {
+    "span": (dict(tasks_per_batch=4, micro_batch=0), False),
+    "local": (dict(tasks_per_batch=8, micro_batch=2, watch=True), True),
+}
+
+
+def _tp_cfg(name=None, dropout=0.0, pallas_bn=None):
+    import dataclasses
+    base = preset("tiny")
+    if name is None:      # the MFM's: 4 episodes a step, SGD at 1e-2
+        return base.replace(
+            model=dataclasses.replace(base.model, trans_linear_in_dim=32,
+                                      trans_linear_out_dim=16, trans_num=1,
+                                      trans_dropout=0.0, compute_dtype="float32"),
+            train=dataclasses.replace(base.train, tasks_per_batch=4,
+                                      training_iterations=4, learning_rate=1e-2,
+                                      test_iters=(), print_freq=0))
+    train, kernel = TP_SCENARIOS[name]
+    return base.replace(
+        model=dataclasses.replace(base.model, compute_dtype="float32",
+                                  trans_dropout=dropout,
+                                  pallas_bn=kernel if pallas_bn is None else pallas_bn),
+        data=dataclasses.replace(base.data, synthetic_noise=2.0),
+        train=dataclasses.replace(base.train, test_iters=(), print_freq=0,
+                                  training_iterations=train["tasks_per_batch"],
+                                  **train))
+
+
+def tensor_parallel_against_one_device(device, mesh, tmp_path, timeout=300):
+    """Run ``tests/torch_tensor_parallel_worker.py`` at ``mesh`` = (data,
+    model) over data·model ranks on ``device`` (one card a rank and NCCL
+    on ``cuda``, gloo on ``cpu``) and hold what it saw against one process
+    on ``device`` (its first card) on the replicas' shards concatenated:
+    the column and row layers, each student scenario's step (and at one
+    replica the dropout step), each rank's kernel launches, the sharded
+    eval, the MFM step, and the CLIs' checkpoints. Returns the largest
+    gradient deviations seen and the worker's step seconds."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    from litemkd_torch.cli.train_teacher import SyntheticMultiModalSource
+    from litemkd_torch.data import SyntheticEpisodeSource
+    from litemkd_torch.parallel import host_rng, local_episode_count
+    from litemkd_torch.train import (create_mfm_train_state, create_train_state,
+                                     make_mfm_train_step, make_train_step,
+                                     run_eval, to_device)
+    from torch_parallel_worker import MetaSource, concat_batches, kernel_launches
+
+    device = torch.device(device)
+    d, m = mesh
+    world = d * m
+    repo = Path(__file__).resolve().parent.parent
+    init = create_train_state(_tp_cfg("span"), "cpu")
+    with torch.no_grad():     # off the ReLU kinks, as in the train-step test
+        for mod in init.model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.bias.fill_(3.0)
+    student, teacher = init.model.state_dict(), init.teacher.state_dict()
+    mfm_state = create_mfm_train_state(_tp_cfg(), "cpu").model.state_dict()
+
+    def one_batch(cfg, src, **kw):
+        tpb = cfg.train.tasks_per_batch
+        if d == 1:
+            return src.sample_batch(np.random.default_rng((cfg.train.seed, 0)),
+                                    tpb, **kw)
+        return concat_batches([src.sample_batch(
+            host_rng(cfg.train.seed, r, 0), local_episode_count(tpb, d), **kw)
+            for r in range(d)])
+
+    # the one-device side first: it builds the kernels the ranks then load
+    want = {}
+    runs = {n: _tp_cfg(n) for n in TP_SCENARIOS}
+    if d == 1:
+        runs["dropout"] = _tp_cfg("span", dropout=0.1)
+    runs["span_kernel"] = _tp_cfg("span", pallas_bn=True)
+    for name, cfg in runs.items():
+        src = SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
+                                     noise=cfg.data.synthetic_noise)
+        state = create_train_state(cfg, device, student_state_dict=student,
+                                   teacher_state_dict=teacher)
+        before = kernel_launches()
+        metrics = make_train_step(cfg)(state, to_device(one_batch(cfg, src,
+                                                                  train=True),
+                                                        device))
+        want[name] = (state, {k: float(v) for k, v in metrics.items()},
+                      [a - b for a, b in zip(kernel_launches(), before)])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.save({"student": student, "teacher": teacher, "meshes": [mesh],
+                "cli_mesh": mesh,
+                "scenarios": {n: json.loads(_tp_cfg(n).to_json())
+                              for n in TP_SCENARIOS},
+                "dropout": json.loads(_tp_cfg("span", dropout=0.1).to_json()),
+                "mfm": json.loads(_tp_cfg().to_json()), "mfm_state": mfm_state},
+               tmp_path / "init.pt")
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(world), "--master_addr", "localhost", "--master_port", str(port),
+           str(repo / "tests" / "torch_tensor_parallel_worker.py"), "--init",
+           str(tmp_path / "init.pt"), "--out", str(tmp_path / "out.pt"),
+           "--ckdir", str(tmp_path / "cli"), "--device", device.type]
+    r = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True,
+                       text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-5000:]
+    got = torch.load(tmp_path / "out.pt", weights_only=False)
+    assert got["world"] == world
+    checks = [torch.load(tmp_path / f"out.pt.{k}") for k in range(world)]
+    assert all(c == checks[0] for c in checks), checks
+    res = got["meshes"][tuple(mesh)]
+
+    layers = res["layers"]
+    for k in ("y", "z", "dx"):
+        np.testing.assert_allclose(layers["tp"][k].numpy(),
+                                   layers["linear"][k].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    dev, seconds = {}, {}
+    for name, g in res["scenarios"].items():
+        state, metrics, launches = want[name]
+        assert g["episodes_seen"] == state.episodes_seen
+        (mm,) = g["metrics"]
+        for k, v in metrics.items():
+            assert mm[k] == pytest.approx(v, rel=1e-4, abs=1e-6), (name, k)
+        for k, v in state.model.state_dict().items():
+            np.testing.assert_allclose(g["state_dict"][k].numpy(), v.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=f"{name} {k}")
+        grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        assert set(grads) == set(g["grads"])
+        g_max = max(float(x.abs().max()) for x in grads.values())
+        err = max(float((g["grads"][k] - x).abs().max()) for k, x in grads.items())
+        assert err <= 1e-3 * g_max, (name, err, g_max)
+        dev[name], seconds[name] = err / g_max, g["seconds"]
+        # every rank of a model group launches what its replica's one device
+        # would: a spanning chunk synchronised over two replicas takes the BN
+        # kernels (the one-device run with pallas_bn on); chunks inside a
+        # replica, 1/data of one device's
+        if name == "span" and d > 1:
+            kernel = want["span_kernel"][2]
+        else:
+            share = d if name == "local" else 1
+            assert all(n % share == 0 for n in launches), (name, launches)
+            kernel = [n // share for n in launches]
+        assert g["launches"] == kernel, (name, g["launches"], kernel)
+        if device.type == "cuda":
+            assert kernel[0] > 0, (name, kernel)
+
+    cfg = _tp_cfg("span")
+    model = create_train_state(cfg, device, with_teacher=False).model
+    model.load_state_dict(res["scenarios"]["span"]["state_dict"])
+    n = 20 if d == 1 else 16
+    records = []
+    src = SyntheticEpisodeSource(cfg, n_classes=16, seed=cfg.train.seed,
+                                 noise=cfg.data.synthetic_noise)
+    ev = run_eval(cfg, model.eval(), MetaSource(src), n_tasks=n, batch_size=8,
+                  seed=0, task_log=records.append)
+    assert res["eval"]["n_tasks"] == ev["n_tasks"] == n
+    for k in ("accuracy", "confidence"):
+        assert res["eval"][k] == pytest.approx(ev[k], abs=1e-4), k
+    assert [x["real_preds"] for x in res["eval_records"]] == \
+        [x["real_preds"] for x in records]
+
+    mcfg = _tp_cfg()
+    mfm = create_mfm_train_state(mcfg, device, state_dict=mfm_state)
+    msrc = SyntheticMultiModalSource(mcfg, seed=mcfg.train.seed)
+    mm = make_mfm_train_step(mcfg)(mfm, to_device(one_batch(mcfg, msrc), device))
+    (mr,) = res["mfm"]["metrics"]
+    for k, v in mm.items():
+        assert mr[k] == pytest.approx(float(v), rel=1e-4, abs=1e-6), k
+    for k, v in mfm.model.state_dict().items():
+        np.testing.assert_allclose(res["mfm"]["state_dict"][k].numpy(),
+                                   v.cpu().numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+    for cli in ("train", "teacher"):
+        names = sorted(os.listdir(tmp_path / "cli" / cli))
+        assert [x for x in names if x.endswith(".pt")] == [
+            "checkpoint_4.pt", "checkpoint_8.pt"], (cli, names)
+    sd = torch.load(tmp_path / "cli" / "train" / "checkpoint_8.pt",
+                    weights_only=True)
+    one = create_train_state(preset("tiny"), "cpu")
+    one.model.load_state_dict(sd["model_state_dict"], strict=True)
+    one.teacher.load_state_dict(sd["teacher_state_dict"], strict=True)
+    assert got["mesh_error"] == f"{world} devices not divisible by model=3"
+    return dev, seconds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)],
+                         ids=["(1,2)", "(2,2)", "(1,4)"])
+def test_tensor_parallel_over_cards_equals_one_card(cuda_device, tmp_path, mesh):
+    """Tensor-parallel training and eval at (data, model) over data·model
+    cards (NCCL, one rank a card) equal one card on the replicas' shards
+    concatenated: the column and row layers, each student step (loss and
+    metrics rel 1e-4, every parameter and running statistic rtol 1e-4 and
+    atol 1e-6, gradients within 1e-3 of the largest), the dropout step at
+    one replica, each rank's kernel launches (its replica's one-card
+    launches), the sharded eval, the MFM step, and the ``cli.train`` and
+    ``cli.train_teacher`` checkpoints from rank 0 with a resume. Needs
+    data·model cards."""
+    world = mesh[0] * mesh[1]
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices, found "
+                    f"{torch.cuda.device_count()}")
+    dev, seconds = tensor_parallel_against_one_device("cuda", mesh, tmp_path)
+    print(f"mesh {mesh}: largest gradient deviation / max|g| {dev}; "
+          f"step seconds per scenario {seconds}")

@@ -362,9 +362,12 @@ def test_world2_cli_train_writes_from_rank_0(world2):
     assert sd["episodes_seen"] == 4 and sd["step"] == 2
 
 
-def test_world2_model_axis_raises(world2):
-    msg = world2["model_axis_error"]
-    assert msg is not None and "ROADMAP.md §1, slice 15" in msg
+def test_world2_mesh_not_laying_out_world_raises(world2):
+    """A ``model`` axis that does not divide the world (3 at world 2)
+    raises JAX's ``make_mesh`` error from ``setup_data_parallel``."""
+    with pytest.raises(ValueError) as e:
+        jax_make_mesh(jax_config.MeshConfig(-1, 3), jax.devices()[:2])
+    assert world2["mesh_error"] == str(e.value)
 
 
 def test_micro_chunks_reject_partial_spans():

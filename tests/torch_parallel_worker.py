@@ -11,7 +11,8 @@ Every rank runs, in order, with the weights and configs of ``--init``:
 - one data-parallel MFM step (``train_loop`` with ``make_mfm_train_step``);
 - ``litemkd_torch.cli.train`` over the group (``--mesh_data`` the world
   size, 4 episodes in all), into ``--ckdir``;
-- ``setup_data_parallel`` with a ``model`` axis of 2 (which must raise).
+- ``setup_data_parallel`` with a ``model`` axis of 3, which does not divide
+  the world (it must raise JAX's ``make_mesh`` error).
 Rank 0 saves what it saw to ``--out`` (torch.save, on the CPU), with the
 launches of each kernel during each scenario's step; every rank saves the
 checksum of its own student after the first scenario to ``--out.<rank>``.
@@ -157,12 +158,12 @@ def main():
                args.device, "--mesh_data", str(dp.world), "--tasks_per_batch",
                str(max(2, dp.world)), "-c", args.ckdir])
 
-    bad = dataclasses.replace(mcfg, mesh=MeshConfig(data=-1, model=2))
+    bad = dataclasses.replace(mcfg, mesh=MeshConfig(data=-1, model=3))
     try:
         setup_data_parallel(bad, args.device)
-        out["model_axis_error"] = None
-    except NotImplementedError as e:
-        out["model_axis_error"] = str(e)
+        out["mesh_error"] = None
+    except ValueError as e:
+        out["mesh_error"] = str(e)
 
     out["world"], out["rank"] = dp.world, dp.rank
     if dp.rank == 0:
