@@ -29,15 +29,16 @@ temporaries of R·C floats at a bf16 trunk, 2 × 5.1 GB at the flagship stem);
 backward three passes to build dx. Fusing them is later work.
 
 Data-parallel training over several ranks (:func:`synced_moments`) sums the
-kernels' per-channel outputs over the ranks before they are used, so one
-BatchNorm batch may span every rank's rows.
+kernels' per-channel outputs over the ranks that hold one micro-batch chunk
+before they are used, so one BatchNorm batch may span several ranks' rows
+(:class:`Span`).
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -218,13 +219,34 @@ bn_sums.launches = 0
 bn_bwd_sums.launches = 0
 
 
+class Span(NamedTuple):
+    """A BatchNorm batch whose rows lie on several ranks: their process
+    ``group`` (None: the default group), and the episodes of the batch on
+    this rank (``here``) and on all of them (``total``). Every episode
+    gives the same number of rows, so the batch has R·total/here rows for
+    R here."""
+
+    group: object
+    here: int
+    total: int
+
+
+def _batch_rows(x2: torch.Tensor, span: Optional[Span]) -> int:
+    r = x2.shape[0]
+    if span is None:
+        return r
+    if r % span.here:
+        raise ValueError(f"{r} rows are not {span.here} episodes' worth")
+    return r // span.here * span.total
+
+
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, weight, bias, eps, world, group):
-        r = x2.shape[0] * world
+    def forward(ctx, x2, weight, bias, eps, span):
+        r = _batch_rows(x2, span)
         sums = bn_sums(x2)
-        if world > 1:
-            dist.all_reduce(sums, group=group)
+        if span is not None:
+            dist.all_reduce(sums, group=span.group)
         mean = sums[0] / r
         var = torch.clamp_min(sums[1] / r - mean * mean, 0.0)  # E[x²]−E[x]²
         inv = torch.rsqrt(var + eps)
@@ -232,22 +254,22 @@ class _BatchNormTrain(torch.autograd.Function):
         shift = bias.to(torch.float32) - mean * scale
         y = (x2.to(torch.float32) * scale).add_(shift).to(x2.dtype)
         ctx.save_for_backward(x2, weight, mean, inv)
-        ctx.world, ctx.group = world, group
+        ctx.span = span
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x2, weight, mean, inv = ctx.saved_tensors
-        r = x2.shape[0] * ctx.world
+        r = _batch_rows(x2, ctx.span)
         gy = gy.contiguous()
         sums = bn_bwd_sums(gy, x2, mean, inv)
         # γ and β get this rank's share (the ranks' gradients are summed
-        # afterwards); dx needs the sums over every rank's rows
+        # afterwards); dx needs the sums over the batch's rows on every rank
         local = sums
-        if ctx.world > 1:
+        if ctx.span is not None:
             sums = sums.clone()
-            dist.all_reduce(sums, group=ctx.group)
+            dist.all_reduce(sums, group=ctx.span.group)
         s_dy, s_dyxh = sums[0], sums[1]
         # dx = γσ⁻¹(dy − Σdy/R − x̂·Σdy·x̂/R) = a·dy + b·x + c per channel
         a = weight.to(torch.float32) * inv
@@ -256,40 +278,43 @@ class _BatchNormTrain(torch.autograd.Function):
         dx = (gy.to(torch.float32) * a).add_(x2.to(torch.float32) * b)
         dx = dx.add_(c).to(x2.dtype)
         return (dx, local[1].to(weight.dtype), local[0].to(weight.dtype),
-                None, None, None)
+                None, None)
 
 
 def batch_norm_train(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     eps: float = 1e-5, *, world: int = 1, group=None
+                     eps: float = 1e-5, *, span: Optional[Span] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode BN of a channels-last (R, C) activation → ``(y, batch
     mean, biased batch var)``. y has x's dtype; mean and var are fp32 and
     carry no gradient (they feed the running-stat update). The moments come
     from :func:`bn_sums` / :func:`bn_bwd_sums` (the kernels on the card).
 
-    ``world`` > 1: the batch is the rows of every rank of ``group`` (the
-    default process group where None; the same R on each), so both moment
-    sums are summed over the ranks before use (a synchronised BatchNorm);
-    γ and β get this rank's share of their gradient."""
-    return _BatchNormTrain.apply(x2, weight, bias, eps, world, group)
+    With a ``span`` the batch is the rows of every rank of its group, so
+    both moment sums are summed over them before use (a synchronised
+    BatchNorm) and the row count is the batch's; γ and β get this rank's
+    share of their gradient."""
+    return _BatchNormTrain.apply(x2, weight, bias, eps, span)
 
 
 @contextlib.contextmanager
-def synced_moments(model: nn.Module, world: int, group=None):
+def synced_moments(model: nn.Module, span: Optional[Span] = None,
+                   keep_stats: bool = True):
     """Within this block every :class:`BatchNorm` of ``model`` that takes
-    batch moments in training takes them over the ``world`` ranks of
-    ``group`` (:func:`batch_norm_train`); 1 leaves them local. The
-    data-parallel train step enters it where one micro-batch chunk spans
-    every replica, forward and backward both, with the data group of the
-    rank's model index."""
+    batch moments in training takes them over ``span``
+    (:func:`batch_norm_train`; None leaves them local) and, with
+    ``keep_stats`` False, leaves its running statistics as they are. The
+    data-parallel train step enters it for each piece of a micro-batch
+    chunk, forward and backward both: a piece of a chunk over several
+    replicas with the chunk's span, and on all but the chunk's first
+    replica without keeping the update, which that one keeps."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in bns:
-        m.sync_world, m.sync_group = world, group
+        m.span, m.keep_stats = span, keep_stats
     try:
         yield
     finally:
         for m in bns:
-            m.sync_world, m.sync_group = 1, None
+            m.span, m.keep_stats = None, True
 
 
 def channels_last_rows(x: torch.Tensor) -> torch.Tensor:
@@ -311,12 +336,12 @@ class BatchNorm(nn.BatchNorm2d):
       :func:`bn_bwd_sums` through :func:`batch_norm_train`; otherwise
       ``F.batch_norm`` (cuDNN on the card).
     - ``freeze_bn``: training uses the running statistics and updates none.
-    - ``sync_world`` above 1 (set by :func:`synced_moments`): the training
-      moments are those of every rank's rows, through
+    - ``span`` (set by :func:`synced_moments`): the training moments are
+      those of the rows of every rank of the span, through
       :func:`batch_norm_train` and so the BN-moment kernels on the card
       whether or not ``pallas_bn`` is set (cuDNN's BatchNorm cannot sum
-      over the ranks), so the running statistics update alike on every
-      rank.
+      over the ranks). ``keep_stats`` False: the running statistics and
+      the update count stay as they are (another rank keeps the update).
     - Running variance: updated with the **biased** batch variance on both
       paths, as flax and ``PallasBatchNorm`` do (PARITY.md:123-124). torch
       updates with the unbiased one; on the ``F.batch_norm`` path the
@@ -336,26 +361,25 @@ class BatchNorm(nn.BatchNorm2d):
         self.pallas_bn = pallas_bn
         self.freeze_bn = freeze_bn
         self.recomputing = False
-        self.sync_world = 1
-        self.sync_group = None
+        self.span: Optional[Span] = None
+        self.keep_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.freeze_bn:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        update = not self.recomputing
+        update = self.keep_stats and not self.recomputing
         if update:
             self.num_batches_tracked.add_(1)
         m = self.momentum
-        if self.pallas_bn or self.sync_world > 1:
+        if self.pallas_bn or self.span is not None:
             n, c, h, w = x.shape
             # the synced path without pallas_bn takes any memory format: the
             # rows are a view in channels-last memory, else a copy
             rows = (channels_last_rows(x) if self.pallas_bn
                     else x.permute(0, 2, 3, 1).reshape(n * h * w, c))
             y, mean, var = batch_norm_train(rows, self.weight, self.bias,
-                                            self.eps, world=self.sync_world,
-                                            group=self.sync_group)
+                                            self.eps, span=self.span)
             if update:
                 with torch.no_grad():
                     self.running_mean.mul_(1 - m).add_(mean, alpha=m)

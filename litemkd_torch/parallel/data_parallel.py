@@ -10,31 +10,29 @@ shard is summed with its own kind.
 - **Gradients are summed** over the ranks, not averaged: the loss is the
   SUM of the per-episode losses (the reference sums 16 episodes before it
   steps), so the global gradient is the sum of the ranks' gradients.
-- **Metrics**: ``task_loss`` is summed over the ranks; every other metric
-  is the mean of the ranks' values (each is a mean over a rank's equal
-  share of the chunks, or of one chunk's episodes).
-- **BatchNorm.** The JAX package takes batch moments per micro-batch chunk
-  of the global batch. Two layouts are ported (:func:`chunk_layout`):
-
-  - ``"span"``: one chunk of the whole batch (``micro_batch`` 0, or at
-    least E), which spans every rank. Its moments are summed over the ranks
-    (:func:`~litemkd_torch.ops.batch_norm.synced_moments`: the BN-moment
-    kernels' sums all-reduced, forward and backward, with or without
-    ``pallas_bn``), so every rank updates the running statistics alike.
-  - ``"local"``: chunks of ``micro_batch`` episodes that each lie inside
-    one rank (``micro_batch`` divides ``E / world``). Moments stay local.
-    The running statistics are an EMA taken chunk by chunk in global
-    order; an update is affine, so after the step each rank's change from
-    the common start is gathered and the global chain is rebuilt from them
-    (:func:`reconcile_running_stats`).
-
-  A chunk that spans some ranks but not all raises.
+- **Metrics** are summed over the ranks (:func:`reduce_metrics`): each
+  rank weighs its averaged metrics by its share of the batch beforehand.
+- **BatchNorm.** The JAX package cuts the global batch into micro-batch
+  chunks of ``micro_batch`` episodes (one chunk with 0) and takes each
+  chunk's batch moments over the whole chunk, wherever its episodes lie.
+  :func:`chunk_plan` lists this rank's pieces of the chunks: a chunk held
+  by one replica has its moments taken there; a chunk spread over several
+  (consecutive) replicas has its moment sums all-reduced over their
+  process group (:func:`span_groups`;
+  :func:`~litemkd_torch.ops.batch_norm.synced_moments` sets the group and
+  the piece's share of the chunk's rows on every BatchNorm), forward and
+  backward, so every replica of the chunk computes its moments. Each rank
+  runs its pieces in chunk order, so the collectives of a chunk meet.
+  Only the replica that holds a chunk's first episode keeps the chunk's
+  running-statistics update; the EMA over the chunks in global order is
+  then rebuilt from the ranks' chains (:func:`reconcile_running_stats`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
@@ -49,26 +47,80 @@ def replicas(dp) -> int:
     return getattr(dp, "data", dp.world)
 
 
-def chunk_layout(micro: int, episodes: int, world: int) -> str:
-    """``"span"`` or ``"local"`` (see the module note) for a batch of
-    ``episodes`` in chunks of ``micro`` over ``world`` replicas; raises on a
-    chunk that would span only some of them."""
-    local = local_episode_count(episodes, world)
-    if not micro or micro >= episodes:
-        return "span"
-    if local % micro == 0:
-        return "local"
-    raise ValueError(
-        f"micro_batch {micro} over {world} ranks of {local} episodes each: "
-        "a chunk would span some ranks but not all, and the port's "
-        "data-parallel BatchNorm takes a chunk inside one rank or across "
-        "all of them (ROADMAP.md §3); pick a micro_batch that divides "
-        f"{local}, or 0")
+class Piece(NamedTuple):
+    """A rank's part of one micro-batch chunk: chunk ``chunk`` of ``size``
+    episodes, of which this rank holds the global episodes ``[start,
+    stop)``; ``members`` are the data indices that hold the chunk."""
+
+    chunk: int
+    size: int
+    start: int
+    stop: int
+    members: range
+
+    @property
+    def episodes(self) -> int:
+        return self.stop - self.start
+
+
+def chunk_size(micro: int, episodes: int) -> int:
+    """Episodes of a chunk: ``micro``, or the whole batch where it is 0 or
+    at least the batch. Raises where it does not divide the batch."""
+    size = micro if micro and micro < episodes else episodes
+    if episodes % size:
+        raise ValueError(f"micro_batch {micro} does not divide the "
+                         f"{episodes} episodes of a batch")
+    return size
+
+
+def chunk_spans(micro: int, episodes: int, data: int) -> List[range]:
+    """The data indices that hold each chunk of a batch of ``episodes`` in
+    chunks of ``micro`` over ``data`` replicas, in chunk order."""
+    size = chunk_size(micro, episodes)
+    local = local_episode_count(episodes, data)
+    return [range(c // local, (c + size - 1) // local + 1)
+            for c in range(0, episodes, size)]
+
+
+def chunk_plan(micro: int, episodes: int, data: int = 1,
+               index: int = 0) -> List[Piece]:
+    """The pieces of data index ``index``: the non-empty parts of the
+    chunks that lie in its episodes ``[index·L, (index+1)·L)``, L =
+    ``episodes / data``, in chunk order. Raises where the JAX package does:
+    ``micro`` not dividing the batch, the batch not dividing over the
+    replicas."""
+    spans = chunk_spans(micro, episodes, data)
+    size, local = episodes // len(spans), episodes // data
+    pieces = []
+    for c, span in enumerate(spans):
+        start = max(c * size, index * local)
+        stop = min((c + 1) * size, (index + 1) * local)
+        if start < stop:
+            pieces.append(Piece(c, size, start, stop, span))
+    return pieces
+
+
+def span_groups(dp: DataParallel, spans) -> Dict[range, object]:
+    """The process group of each chunk span of ``spans`` with more than
+    one member, over the ranks of those data indices at this rank's model
+    index; a span of every replica is the data group itself. Every rank
+    must call this with the same spans, in the same order:
+    ``dist.new_group`` is a collective over the world, so each new span's
+    group is made at every model index."""
+    groups: Dict[range, object] = {}
+    for span in dict.fromkeys(s for s in spans if len(s) > 1):
+        if len(span) == dp.data:
+            groups[span] = dp.data_group
+            continue
+        made = [dist.new_group([dp.layout.data_ranks(j)[i] for i in span])
+                for j in range(dp.model)]
+        groups[span] = made[dp.model_index]
+    return groups
 
 
 def check_sync_batch_norm(model: nn.Module, allowed=(BatchNorm,)) -> None:
     """Raise on a batch-statistics module of ``model`` that is not one of
-    ``allowed``: the ``"span"`` layout synchronises the port's
+    ``allowed``: a chunk over several replicas synchronises the port's
     :class:`BatchNorm` alone, and the fusion teachers' step none."""
     other = sorted({type(m).__name__ for m in model.modules()
                     if isinstance(m, _BatchNorm)
@@ -93,11 +145,12 @@ def all_reduce_grads(model: nn.Module, dp: DataParallel) -> None:
 
 def reduce_metrics(metrics: Dict[str, torch.Tensor],
                    dp: DataParallel) -> Dict[str, torch.Tensor]:
-    """``task_loss`` summed over the replicas, every other scalar averaged."""
+    """Every scalar summed over the replicas: ``task_loss`` is a sum, and
+    each rank has weighed its averaged metrics by its share of the
+    batch."""
     names = list(metrics)
     flat = dp.all_reduce_(torch.stack([metrics[k].float() for k in names]))
-    return {k: flat[i] if k == "task_loss" else flat[i] / dp.data
-            for i, k in enumerate(names)}
+    return {k: flat[i] for i, k in enumerate(names)}
 
 
 def _running(model: nn.Module) -> List[_BatchNorm]:
@@ -113,32 +166,35 @@ def snapshot_running_stats(model: nn.Module) -> List[Tuple[torch.Tensor, ...]]:
 
 def reconcile_running_stats(model: nn.Module, before, dp: DataParallel) -> None:
     """Rebuild the global EMA of the running statistics from each rank's
-    chain over its own chunks.
+    chain over the chunks it kept.
 
-    A module updated n times on a rank with decay a = 1 − momentum goes
-    from r₀ to r_k = aⁿ·r₀ + d_k. The chain over the ranks' chunks in
-    global order is a^{nW}·r₀ + Σ_k a^{n(W−1−k)}·d_k: one all-gather of
-    every rank's d_k gives it on every rank."""
+    A rank keeps the update of each chunk whose first episode it holds
+    (:class:`Piece`), so its kept chunks are consecutive and the ranks' in
+    data order are every chunk in global order. A module updated n times
+    on a rank with decay a = 1 − momentum goes from r₀ to r = aⁿ·r₀ + d,
+    an affine map: one all-gather of every rank's (d, aⁿ, n) lets each rank
+    apply the ranks' maps in data order, and the update counts add up."""
     mods = _running(model)
     if not mods:
         return
     r0 = torch.cat([torch.cat([m0, v0]) for m0, v0, _ in before])
     now = torch.cat([torch.cat([m.running_mean, m.running_var]) for m in mods])
+    counts = torch.stack([(m.num_batches_tracked - n0).to(r0.dtype)
+                          for m, (_, _, n0) in zip(mods, before)])
     decay = torch.cat([
-        torch.pow(torch.full_like(m.running_mean, 1 - m.momentum),
-                  (m.num_batches_tracked - n0).to(m.running_mean.dtype)
-                  ).repeat(2)
-        for m, (_, _, n0) in zip(mods, before)])
-    d = dp.gather((now - decay * r0)[None])
-    out = decay ** dp.data * r0
-    for k in range(dp.data):
-        out = out + decay ** (dp.data - 1 - k) * d[k]
+        torch.pow(torch.full_like(m.running_mean, 1 - m.momentum), n).repeat(2)
+        for m, n in zip(mods, counts)])
+    n = r0.numel()
+    every = dp.gather(torch.cat([now - decay * r0, decay, counts])[None])
+    out = r0
+    for k in range(every.shape[0]):
+        out = every[k, n:2 * n] * out + every[k, :n]
+    total = every[:, 2 * n:].sum(dim=0)
     i = 0
     with torch.no_grad():
-        for m, (_, _, n0) in zip(mods, before):
+        for j, (m, (_, _, n0)) in enumerate(zip(mods, before)):
             c = m.running_mean.numel()
             m.running_mean.copy_(out[i:i + c])
             m.running_var.copy_(out[i + c:i + 2 * c])
-            m.num_batches_tracked.copy_(
-                n0 + (m.num_batches_tracked - n0) * dp.data)
+            m.num_batches_tracked.copy_(n0 + total[j].round().long())
             i += 2 * c

@@ -7,24 +7,27 @@ reference sums 16 per-episode losses before it steps. With ``micro_batch``
 the batch is cut into chunks that run in order at the same parameters:
 their gradients add up in ``.grad`` and each chunk's BatchNorm updates its
 running statistics in place, so the statistics chain from one chunk to the
-next as the JAX package's ``lax.scan`` carries them.
+next as the JAX package's ``lax.scan`` carries them. Over several replicas
+a rank runs its pieces of the chunks (:func:`~litemkd_torch.parallel.
+data_parallel.chunk_plan`); one process's pieces are the whole chunks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import Config
 from ..distill import get_distiller, merge_logits
 from ..models import BatchedStudent, BatchedTeacher, init_student_
-from ..ops.batch_norm import synced_moments
+from ..ops.batch_norm import Span, synced_moments
 from ..ops.positional import bind_dropout_generator
 from ..parallel.data_parallel import (all_reduce_grads, check_sync_batch_norm,
-                                      chunk_layout, reconcile_running_stats,
-                                      reduce_metrics, replicas,
-                                      snapshot_running_stats)
+                                      chunk_plan, chunk_spans,
+                                      reconcile_running_stats, reduce_metrics,
+                                      replicas, snapshot_running_stats,
+                                      span_groups)
 from ..parallel.multihost import DataParallel
 from ..parallel.tensor_parallel import (ModelAxis, shard_model,
                                         shard_optimizer_state_, squared_norm,
@@ -134,15 +137,10 @@ def _episode(x, i: int):
     return x[i]
 
 
-def _chunks(batch: EpisodeBatch, micro: int) -> Iterable[EpisodeBatch]:
-    e = batch.support_labels.shape[0]
-    if not micro or micro >= e:
-        return [batch]
-    if e % micro:
-        raise ValueError(f"micro_batch {micro} does not divide the {e} "
-                         "episodes of a batch")
-    return [EpisodeBatch(*(None if x is None else x[i:i + micro]
-                           for x in batch)) for i in range(0, e, micro)]
+def _slice(batch: EpisodeBatch, lo: int, hi: int) -> EpisodeBatch:
+    if lo == 0 and hi == batch.support_labels.shape[0]:
+        return batch
+    return EpisodeBatch(*(None if x is None else x[lo:hi] for x in batch))
 
 
 def shard_train_state(state: TrainState, axis: Optional[ModelAxis]
@@ -182,9 +180,12 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
     With ``dp`` (a rank of a process group) ``batch`` is the
     ``tasks_per_batch / data`` episodes of this rank's replica and the
     update is the one of the replicas' shards concatenated: gradients and
-    metrics are reduced over the replicas and BatchNorm moments or running
-    statistics synchronised, as :mod:`litemkd_torch.parallel.data_parallel`
-    sets out. With a model axis the state must be cut over it
+    metrics are reduced over the replicas, the BatchNorm moments of a chunk
+    over several replicas summed over them and the running statistics
+    rebuilt, as :mod:`litemkd_torch.parallel.data_parallel` sets out; the
+    process groups of the chunks are made here, on every rank. Every
+    layout the JAX package takes runs; ``micro_batch`` must divide the
+    batch. With a model axis the state must be cut over it
     (:func:`shard_train_state`, which :func:`~litemkd_torch.train.loop.
     train_loop` applies); the watched norms count each shard once."""
     distill = get_distiller(cfg.distill.name)
@@ -193,9 +194,10 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
     micro = cfg.train.micro_batch
     watch = cfg.train.watch
     world = replicas(dp) if dp is not None else 1
-    layout = chunk_layout(micro, tpb, world) if dp is not None else None
-    group = dp.data_group if dp is not None else None
+    index = dp.data_index if dp is not None else 0
     axis = dp.axis if dp is not None else None
+    groups = (span_groups(dp, chunk_spans(micro, tpb, world))
+              if dp is not None else {})
 
     def chunk_loss(state: TrainState, chunk: EpisodeBatch):
         out = state.model(chunk.support_clips, chunk.support_labels,
@@ -226,20 +228,31 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         if state.teacher is not None:
             state.teacher.train()
         state.optimizer.zero_grad(set_to_none=True)
-        chunks = _chunks(batch, micro)
-        if layout == "span" and world > 1:
+        e = batch.support_labels.shape[0]
+        if dp is not None and e * world != tpb:
+            raise ValueError(f"{e} episodes on each of {world} replicas; the "
+                             f"step was built for {tpb}")
+        plan = chunk_plan(micro, e * world, world, index)
+        if groups:
             check_sync_batch_norm(state.model)
-        before = (snapshot_running_stats(state.model)
-                  if layout == "local" and world > 1 else None)
+        before = snapshot_running_stats(state.model) if world > 1 else None
         sums: Dict[str, torch.Tensor] = {}
-        with synced_moments(state.model, world if layout == "span" else 1,
-                            group):
-            for chunk in chunks:
-                loss, m = chunk_loss(state, chunk)
+        for piece in plan:
+            span = (Span(groups[piece.members], piece.episodes, piece.size)
+                    if len(piece.members) > 1 else None)
+            lo = piece.start - index * e
+            # the chunk's first replica keeps its running-statistics update
+            first = piece.start == piece.chunk * piece.size
+            with synced_moments(state.model, span, keep_stats=first):
+                loss, m = chunk_loss(state, _slice(batch, lo, lo + piece.episodes))
                 loss.backward()
-                for k, v in m.items():
-                    sums[k] = sums[k] + v if k in sums else v
-        metrics = {k: (v if k == "task_loss" else v / len(chunks))
+            # an averaged metric of a piece weighs as its share of its chunk
+            share = piece.episodes / piece.size
+            for k, v in m.items():
+                v = v if k == "task_loss" else v * share
+                sums[k] = sums[k] + v if k in sums else v
+        chunks = e * world // plan[0].size
+        metrics = {k: (v if k == "task_loss" else v / chunks)
                    for k, v in sums.items()}
         if dp is not None:
             sync_replicated_grads_(state.model, axis)

@@ -254,7 +254,8 @@ def make_mfm_train_step(cfg: Config, dp: Optional[DataParallel] = None
         total = (sum_ce(logits, batch.query_labels) / tpb).sum()
         total.backward()
         acc = per_episode_accuracy(logits.detach(), batch.query_labels)
-        metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
+        # each replica's accuracy weighs as its share of the batch
+        metrics = {"task_loss": total.detach(), "accuracy": acc.mean() / world}
         if dp is not None:
             sync_replicated_grads_(state.model, dp.axis)
             all_reduce_grads(state.model, dp)

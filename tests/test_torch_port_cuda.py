@@ -735,11 +735,15 @@ def test_flops_on_card_equal_the_fake_count(cuda_device):
 
 
 # name → (train settings, pallas_bn): a chunk spanning every rank (on the
-# cuDNN config and with the BN kernels) and chunks inside each rank
+# cuDNN config and with the BN kernels), chunks inside each rank, and
+# chunks over some ranks but not all, off the ranks' boundaries (E 12 in
+# chunks of 4: at world 2 the middle chunk spans both ranks, at world 4
+# every chunk spans two, in pieces of 3 + 1, 2 + 2, 1 + 3)
 DP_SCENARIOS = {
     "span": (dict(tasks_per_batch=4, micro_batch=0), False),
     "span_kernel": (dict(tasks_per_batch=4, micro_batch=0), True),
     "local": (dict(tasks_per_batch=8, micro_batch=2), True),
+    "partial": (dict(tasks_per_batch=12, micro_batch=4), True),
 }
 
 
@@ -828,6 +832,7 @@ def data_parallel_against_one_device(device, world, tmp_path, timeout=300):
     sums = [torch.load(tmp_path / f"out.pt.{k}") for k in range(world)]
     assert all(s == sums[0] for s in sums), sums
 
+    from litemkd_torch.parallel.data_parallel import chunk_plan, chunk_size
     dev = {}
     for name, (state, metrics, launches) in want.items():
         g = got["scenarios"][name]
@@ -845,14 +850,16 @@ def data_parallel_against_one_device(device, world, tmp_path, timeout=300):
         err = max(float((g["grads"][k] - x).abs().max()) for k, x in grads.items())
         assert err <= 1e-3 * g_max, (name, err, g_max)
         dev[name] = err / g_max
-        # the spanning chunk takes its moments through the BN kernels on the
-        # card with or without pallas_bn: each rank launches what one device
-        # does with them, its one chunk; in rank, a rank runs 1/world of the
-        # chunks (no launch on the CPU)
+        # a spanning chunk takes its moments through the BN kernels on the
+        # card with or without pallas_bn; rank 0 launches, for each of its
+        # pieces of the chunk plan, what one device does for a chunk (no
+        # launch on the CPU)
         one = want["span_kernel" if name == "span" else name][2]
-        share = 1 if name.startswith("span") else world
-        assert all(n % share == 0 for n in one), (name, one)
-        kernel = [n // share for n in one]
+        t = _dp_cfg(name).train
+        chunks = t.tasks_per_batch // chunk_size(t.micro_batch, t.tasks_per_batch)
+        pieces = len(chunk_plan(t.micro_batch, t.tasks_per_batch, world, 0))
+        assert all(n % chunks == 0 for n in one), (name, one)
+        kernel = [n // chunks * pieces for n in one]
         assert g["launches"] == kernel, (name, g["launches"], kernel)
         if device.type == "cuda":
             assert min(kernel) > 0, (name, kernel)
@@ -899,9 +906,10 @@ def test_data_parallel_over_cards_equals_one_card(cuda_device, tmp_path, world):
     metrics (rel 1e-4), every parameter and BN running statistic after the
     step (rtol 1e-4, atol 1e-6), gradients within 1e-3 of the largest (the
     card-vs-CPU bound above: the ranks run other batch sizes, so other
-    reduction orders), each rank's kernel launches (one card's for a
-    spanning chunk, 1/world of them in rank), the sharded eval, the MFM
-    step and ``cli.train`` from rank 0. Needs ``world`` cards."""
+    reduction orders), rank 0's kernel launches (one card's per chunk for
+    each of its pieces of the chunk plan; the scenarios include chunks
+    over some ranks but not all), the sharded eval, the MFM step and
+    ``cli.train`` from rank 0. Needs ``world`` cards."""
     if torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} CUDA devices, found "
                     f"{torch.cuda.device_count()}")

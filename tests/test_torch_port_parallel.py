@@ -18,6 +18,7 @@ import socket
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -38,9 +39,10 @@ import litemkd_torch.config as torch_config
 from litemkd_torch.cli.train_teacher import SyntheticMultiModalSource
 from litemkd_torch.data import SyntheticEpisodeSource
 from litemkd_torch.models import BatchedTeacher
-from litemkd_torch.parallel import (host_rng, local_episode_count, make_mesh,
-                                    shard_batch)
-from litemkd_torch.parallel.data_parallel import chunk_layout
+from litemkd_torch.parallel import (DataParallel, Mesh, host_rng,
+                                    local_episode_count, make_mesh, shard_batch)
+from litemkd_torch.parallel.data_parallel import (chunk_plan, chunk_spans,
+                                                  span_groups)
 from litemkd_torch.tools.weights import (student_state_dict_from_jax,
                                          teacher_state_dict_from_jax,
                                          teacher_state_dict_from_reference)
@@ -85,16 +87,70 @@ def test_make_mesh_equals_jax(data, model, world):
     assert got.shape == want and got.size == world
 
 
+def _pieces(micro, episodes, data):
+    """Each data index's pieces as (chunk, start, stop, members)."""
+    return [[(p.chunk, p.start, p.stop, tuple(p.members))
+             for p in chunk_plan(micro, episodes, data, d)] for d in range(data)]
+
+
 def test_local_episode_count_and_layouts():
+    """The chunk plan: each replica's pieces of the chunks (global episode
+    ranges) with the data indices of their chunk, and the process groups
+    that the spans of several replicas get."""
     assert local_episode_count(16, 4) == 4
     with pytest.raises(ValueError, match="global batch 6 not divisible by 4"):
         local_episode_count(6, 4)
-    assert chunk_layout(0, 4, 2) == "span"
-    assert chunk_layout(4, 4, 2) == "span"
-    assert chunk_layout(2, 8, 2) == "local"
-    assert chunk_layout(4, 16, 4) == "local"      # the flagship at world 4
-    with pytest.raises(ValueError, match="span some ranks but not all"):
-        chunk_layout(4, 8, 4)
+    # one chunk over every replica (micro 0, or at least the batch)
+    assert _pieces(0, 4, 2) == _pieces(4, 4, 2) == [[(0, 0, 2, (0, 1))],
+                                                   [(0, 2, 4, (0, 1))]]
+    # chunks inside each replica; the flagship at world 4
+    assert _pieces(2, 8, 2) == [[(0, 0, 2, (0,)), (1, 2, 4, (0,))],
+                                [(2, 4, 6, (1,)), (3, 6, 8, (1,))]]
+    assert [len(p) for p in _pieces(4, 16, 4)] == [1, 1, 1, 1]
+    # each chunk over two replicas: E 8 over 4, the flagship's 16 over 8
+    assert _pieces(4, 8, 4) == [[(0, 0, 2, (0, 1))], [(0, 2, 4, (0, 1))],
+                                [(1, 4, 6, (2, 3))], [(1, 6, 8, (2, 3))]]
+    assert chunk_spans(4, 16, 8) == [range(2 * i, 2 * i + 2) for i in range(4)]
+    # chunks off the replicas' boundaries
+    assert _pieces(2, 6, 2) == [[(0, 0, 2, (0,)), (1, 2, 3, (0, 1))],
+                                [(1, 3, 4, (0, 1)), (2, 4, 6, (1,))]]
+    assert _pieces(4, 12, 4) == [
+        [(0, 0, 3, (0, 1))], [(0, 3, 4, (0, 1)), (1, 4, 6, (1, 2))],
+        [(1, 6, 8, (1, 2)), (2, 8, 9, (2, 3))], [(2, 9, 12, (2, 3))]]
+
+    made = []
+
+    def rank(data, model, model_index):
+        """What ``span_groups`` reads of a rank at ``model_index``."""
+        return SimpleNamespace(data=data, model=model, model_index=model_index,
+                               data_group="data", layout=Mesh(data, model))
+
+    def new_group(ranks):
+        made.append(ranks)
+        return f"group{len(made)}"
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch.distributed, "new_group", new_group)
+    try:
+        groups = span_groups(rank(4, 1, 0), chunk_spans(4, 12, 4))
+        assert made == [[0, 1], [1, 2], [2, 3]]
+        assert groups == {range(0, 2): "group1", range(1, 3): "group2",
+                          range(2, 4): "group3"}
+        # a span of every replica is the data group; single ones get none
+        assert span_groups(rank(4, 1, 0), chunk_spans(0, 8, 4)) == {
+            range(0, 4): "data"}
+        assert span_groups(rank(4, 1, 0), chunk_spans(2, 8, 4)) == {}
+        assert span_groups(rank(2, 2, 1), chunk_spans(2, 6, 2)) == {
+            range(0, 2): "data"}
+        assert len(made) == 3
+        # with a model axis each span is made at every model index, and a
+        # rank keeps its own model index's
+        del made[:]
+        groups = span_groups(rank(4, 2, 1), chunk_spans(4, 12, 4))
+        assert made == [[0, 2], [1, 3], [2, 4], [3, 5], [4, 6], [5, 7]]
+        assert groups[range(1, 3)] == "group4"
+    finally:
+        mp.undo()
 
 
 def _jax_cfg(**train):
@@ -371,11 +427,24 @@ def test_world2_mesh_not_laying_out_world_raises(world2):
 
 
 def test_micro_chunks_reject_partial_spans():
-    """A chunk over some ranks but not all is refused before any step."""
-    cfg = _port_cfg(tasks_per_batch=8, micro_batch=4)
-
-    class FakeGroup:
-        rank, world, device = 0, 4, torch.device("cpu")
-
-    with pytest.raises(ValueError, match="ROADMAP.md §3"):
-        make_train_step(cfg, FakeGroup())
+    """Only what the JAX package refuses is refused before any step: a
+    ``micro_batch`` that does not divide the batch (and a batch that does
+    not divide over the replicas); every chunk over some replicas but not
+    all is planned."""
+    dp = DataParallel(0, 4, torch.device("cpu"))     # no group is made
+    for tpb, micro in ((8, 3), (12, 5), (6, 4)):
+        with pytest.raises(ValueError, match=f"micro_batch {micro} does not "
+                                             f"divide the {tpb} episodes"):
+            make_train_step(_port_cfg(tasks_per_batch=tpb, micro_batch=micro),
+                            dp)
+        with pytest.raises(ValueError, match="does not divide"):
+            chunk_plan(micro, tpb)
+    with pytest.raises(ValueError, match="global batch 6 not divisible by 4"):
+        make_train_step(_port_cfg(tasks_per_batch=6, micro_batch=2), dp)
+    for tpb, micro, data in ((8, 4, 4), (12, 4, 4), (6, 2, 2), (12, 4, 2),
+                             (16, 4, 8), (24, 8, 6), (6, 3, 3)):
+        pieces = [p for d in range(data) for p in chunk_plan(micro, tpb, data, d)]
+        assert sorted((p.start, p.stop) for p in pieces) == [
+            (p.start, p.stop) for p in pieces]
+        assert sum(p.episodes for p in pieces) == tpb
+        assert any(len(p.members) > 1 and p.size < tpb for p in pieces)
