@@ -11,108 +11,62 @@ eval forward), ``teacher`` (the MFM's train step) or ``pretrain`` (the
 supervised resnet50 step, ``--batch_size`` clips). Each runs on synthetic
 data from seed 0, on ``--device`` (cuda by default): one warm-up step, then
 ``--steps`` steps under ``torch.profiler`` (:func:`~litemkd_torch.utils.
-tracing.trace`), whose Chrome trace goes to ``--out``. The summary sums the
-card's kernel and copy times by name (on the CPU, the self time of each
-op), and names a kernel that one of the port's custom ops launched after
-that op (``litemkd::tct_attention``, ``litemkd::bn_sums``,
-``litemkd::bn_bwd_sums``).
+tracing.trace`), whose Chrome trace goes to ``--out``. Both summaries
+read the profile's records (:func:`~litemkd_torch.utils.tracing.
+profile_records`: each kernel tied to the chain of host ops that launched
+it). The first sums the card's kernel and copy times by name (on the CPU,
+the self time of each op), and names a kernel that one of the port's
+custom ops launched after that op (``litemkd::tct_attention``,
+``litemkd::bn_sums``, ``litemkd::bn_bwd_sums``).
+
+The second groups the same records by the program's spans
+(``litemkd/step``, ``trunk``, ``head``, ``teacher``, ``encoders``,
+``loss``, ``backward``, ``optimizer``; see
+:func:`~litemkd_torch.utils.tracing.attribute`): per step, the card's
+kernel time of each span, backward kernels under their forward op's span,
+the card's idle gaps by what the launching thread was doing, and the
+host-card synchronisations; then the shares of the time outside the
+program and in ``step`` alone, and of the backward's time linked to a
+forward span. On the CPU each op's self time takes the kernels' place.
 """
 from __future__ import annotations
 
 import argparse
 import collections
-import glob
-import gzip
-import json
 import os
 import tempfile
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
-from ..utils.tracing import trace
+from ..utils.tracing import (DeviceOp, HostOp, attribute, chain, host_self_times,
+                             profile_records, report_lines, trace)
 from .common import add_common_args, add_device_arg, build_config, resolve_device
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-_RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+CUSTOM_OP = "litemkd::"
 
 
-def _load(trace_dir: str):
-    files = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json*")),
-                   key=os.path.getmtime)
-    if not files:
-        return None
-    opener = gzip.open if files[-1].endswith(".gz") else open
-    with opener(files[-1], "rt") as f:
-        return json.load(f)
-
-
-def _enclosing_ops(ops, points):
-    """For each (tid, ts) of ``points``, the name of the innermost op of
-    ``ops`` (X events of one process) on that thread that spans ts."""
-    by_tid = collections.defaultdict(list)
-    for e in ops:
-        by_tid[e["tid"]].append(e)
-    out = []
-    for tid, ts in points:
-        inner = None
-        for e in by_tid.get(tid, ()):
-            if e["ts"] <= ts <= e["ts"] + e["dur"] and (
-                    inner is None or e["dur"] <= inner["dur"]):
-                inner = e
-        out.append(inner["name"] if inner else None)
-    return out
-
-
-def _self_times(ops) -> Dict[str, float]:
-    """Exclusive (self) time of each op name, nested ops subtracted."""
-    out: Dict[str, float] = collections.Counter()
-    by_tid = collections.defaultdict(list)
-    for e in ops:
-        by_tid[(e.get("pid"), e["tid"])].append(e)
-    for evs in by_tid.values():
-        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        stack = []
-        for e in evs:
-            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
-                stack.pop()
-            if stack:
-                out[stack[-1]["name"]] -= e["dur"]
-            out[e["name"]] += e["dur"]
-            stack.append(e)
-    return out
-
-
-def summarize(trace_dir: str, top: int = 15) -> Dict[str, float]:
-    """Print the op time of the newest trace under ``trace_dir`` and its
-    ``top`` ops by name; returns ``{name: µs}``. The card's kernels and
-    copies when the trace has any (a kernel launched inside a ``litemkd::``
-    op is named ``<op> <kernel>``), else the CPU ops' self times."""
-    data = _load(trace_dir)
-    if data is None:
-        print("no trace files found")
-        return {}
-    events = [e for e in data.get("traceEvents", [])
-              if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in events if e.get("cat") in _DEVICE_CATS]
-    ops = [e for e in events if e.get("cat") == "cpu_op"]
+def summarize(host: Sequence[HostOp], device: Sequence[DeviceOp],
+              top: int = 15) -> Dict[str, float]:
+    """Print the op time of a profile's records (:func:`~litemkd_torch.
+    utils.tracing.profile_records`) and its ``top`` ops by name; returns
+    ``{name: µs}``. The card's kernels and copies when there are any (a
+    kernel launched inside a ``litemkd::`` op is named ``<op> <kernel>``),
+    else the host ops' self times."""
+    buckets: Dict[str, float] = collections.Counter()
     if device:
-        runtime = {e.get("args", {}).get("correlation"): e for e in events
-                   if e.get("cat") in _RUNTIME_CATS}
-        launch = [runtime.get(e.get("args", {}).get("correlation"))
-                  for e in device]
-        owners = _enclosing_ops(
-            [e for e in ops if e["name"].startswith("litemkd::")],
-            [(r["tid"], r["ts"]) if r else (None, -1) for r in launch])
-        buckets: Dict[str, float] = collections.Counter()
-        for e, owner in zip(device, owners):
-            name = e["name"][:90]
-            buckets[f"{owner} {name}" if owner else name] += e["dur"]
+        for d in device:
+            owner = next((o.name for o in chain(d.launch)
+                          if o.name.startswith(CUSTOM_OP)), None)
+            name = d.name[:90]
+            buckets[f"{owner} {name}" if owner else name] += d.end_us - d.start_us
         what = f"{len(device)} kernels and copies on the card"
     else:
-        buckets = _self_times(ops)
-        what = f"{len(ops)} CPU ops, self time"
+        work = host_self_times(host)
+        for o, us in work:
+            buckets[o.name] += us
+        what = f"{len(work)} CPU ops, self time"
     total = sum(buckets.values())
     print(f"device op time: {total / 1e3:.3f} ms ({what})")
     for k, d in sorted(buckets.items(), key=lambda kv: -kv[1])[:top]:
@@ -192,10 +146,13 @@ def main(argv=None):
 
     run_once = build_path(args.path, cfg, device, args.batch_size)
     run_once()   # warm-up: kernel builds, allocator, cuDNN plans
-    with trace(args.out, device):
+    with trace(args.out, device) as prof:
         for _ in range(args.steps):
             run_once()
-    return summarize(args.out, args.top)
+    host, device_ops = profile_records(prof)
+    buckets = summarize(host, device_ops, args.top)
+    print("\n".join(report_lines(attribute(host, device_ops), args.steps)))
+    return buckets
 
 
 if __name__ == "__main__":

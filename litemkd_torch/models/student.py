@@ -23,6 +23,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.dtypes import anchor_dtype
+from ..utils.tracing import span
 from .backbones.classifier_net import DeiTTrunk
 from .backbones.mobilenet import MobileNetV3Backbone
 from .backbones.resnet import FeatureBackbone, ResNetBackbone
@@ -249,8 +250,10 @@ class BatchedStudent(nn.Module):
         return split(feats)
 
     def forward(self, context_clips, context_labels, target_clips):
-        ctx, tgt = self.features(context_clips, target_clips)
-        logits = self.classifier(ctx, context_labels, tgt)
+        with span("trunk"):
+            ctx, tgt = self.features(context_clips, target_clips)
+        with span("head"):
+            logits = self.classifier(ctx, context_labels, tgt)
         return {"logits": logits, "context_features": ctx,
                 "target_features": tgt}
 

@@ -44,6 +44,7 @@ from torch import nn
 from ...ops.positional import Dropout, TrainablePE
 from ...ops.strm import BottleneckMLP2, MLPMixEnrich
 from ...ops.tct import MultiSetTCT
+from ...utils.tracing import span
 
 
 class SelfAttention(nn.Module):
@@ -244,8 +245,10 @@ class MFMTeacher(nn.Module):
         return fused
 
     def forward(self, context_feats, context_labels, target_feats):
-        logits = self.bracnch(self.fuse(context_feats), context_labels,
-                              self.fuse(target_feats))
+        with span("encoders"):
+            context, target = self.fuse(context_feats), self.fuse(target_feats)
+        with span("head"):
+            logits = self.bracnch(context, context_labels, target)
         return {"logits": logits}
 
     def extract(self, feats: Dict[str, torch.Tensor]) -> torch.Tensor:

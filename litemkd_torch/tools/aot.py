@@ -35,6 +35,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.dtypes import set_fp32_math
+from ..utils.tracing import span
 
 _MANIFEST_NAME = "manifest.json"
 # the modules whose import registers the custom ops an artifact may call
@@ -48,8 +49,9 @@ class _Scorer(nn.Module):
         self.merge = merge
 
     def forward(self, support_clips, support_labels, query_clips):
-        out = self.student(support_clips, support_labels, query_clips)
-        return self.merge(out["logits"])
+        with span("score"):
+            out = self.student(support_clips, support_labels, query_clips)
+            return self.merge(out["logits"])
 
 
 class _Extractor(nn.Module):

@@ -34,6 +34,7 @@ from ..parallel.tensor_parallel import (ModelAxis, shard_model,
                                         sync_replicated_grads_)
 from ..tools.weights import merge_state_dict
 from ..utils.metrics import per_episode_accuracy
+from ..utils.tracing import span
 from .schedule import make_optimizer
 
 
@@ -205,29 +206,35 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         s_logits = out["logits"]
         t_logits = None
         if state.teacher is not None:
-            with torch.no_grad():
+            with span("teacher"), torch.no_grad():
                 t_logits = state.teacher(chunk.support_feats, chunk.support_labels,
                                          chunk.query_feats)["logits"]
-        # teacher-free losses (ce, TRXLoss) ignore the teacher argument
-        per_ep = [distill(_episode(s_logits, i),
-                          None if t_logits is None else _episode(t_logits, i),
-                          chunk.query_labels[i], dcfg, tpb)
-                  for i in range(chunk.support_labels.shape[0])]
-        stacked = {k: torch.stack([p[k] for p in per_ep]) for k in per_ep[0]}
-        total = stacked["loss"].sum()
-        merged = merge_logits(cfg.distill.name, s_logits)
-        acc = per_episode_accuracy(merged, chunk.query_labels)
-        metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
-        for k, v in stacked.items():
-            if k != "loss":
-                metrics[k] = v.detach().mean()
+        with span("loss"):
+            # teacher-free losses (ce, TRXLoss) ignore the teacher argument
+            per_ep = [distill(_episode(s_logits, i),
+                              None if t_logits is None else _episode(t_logits, i),
+                              chunk.query_labels[i], dcfg, tpb)
+                      for i in range(chunk.support_labels.shape[0])]
+            stacked = {k: torch.stack([p[k] for p in per_ep]) for k in per_ep[0]}
+            total = stacked["loss"].sum()
+            merged = merge_logits(cfg.distill.name, s_logits)
+            acc = per_episode_accuracy(merged, chunk.query_labels)
+            metrics = {"task_loss": total.detach(), "accuracy": acc.mean()}
+            for k, v in stacked.items():
+                if k != "loss":
+                    metrics[k] = v.detach().mean()
         return total, metrics
 
     def train_step(state: TrainState, batch: EpisodeBatch) -> Dict[str, Any]:
+        with span("step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: EpisodeBatch) -> Dict[str, Any]:
         state.model.train()
         if state.teacher is not None:
             state.teacher.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         e = batch.support_labels.shape[0]
         if dp is not None and e * world != tpb:
             raise ValueError(f"{e} episodes on each of {world} replicas; the "
@@ -238,14 +245,15 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
         before = snapshot_running_stats(state.model) if world > 1 else None
         sums: Dict[str, torch.Tensor] = {}
         for piece in plan:
-            span = (Span(groups[piece.members], piece.episodes, piece.size)
+            rows = (Span(groups[piece.members], piece.episodes, piece.size)
                     if len(piece.members) > 1 else None)
             lo = piece.start - index * e
             # the chunk's first replica keeps its running-statistics update
             first = piece.start == piece.chunk * piece.size
-            with synced_moments(state.model, span, keep_stats=first):
+            with synced_moments(state.model, rows, keep_stats=first):
                 loss, m = chunk_loss(state, _slice(batch, lo, lo + piece.episodes))
-                loss.backward()
+                with span("backward"):
+                    loss.backward()
             # an averaged metric of a piece weighs as its share of its chunk
             share = piece.episodes / piece.size
             for k, v in m.items():
@@ -270,8 +278,9 @@ def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
                 sub = [p for n, p in named if n.split(".")[0] == top]
                 metrics[f"grad_norm/{top}"] = _global_norm(sub, True, axis)
                 metrics[f"param_norm/{top}"] = _global_norm(sub, False, axis)
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         state.episodes_seen += batch.support_labels.shape[0] * world
         return metrics

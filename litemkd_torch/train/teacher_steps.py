@@ -45,6 +45,7 @@ from ..parallel.multihost import DataParallel
 from ..parallel.tensor_parallel import sync_replicated_grads_
 from ..tools.weights import load_reference_checkpoint, merge_state_dict
 from ..utils.metrics import per_episode_accuracy
+from ..utils.tracing import span
 from .checkpoint import CheckpointManager
 from .schedule import make_optimizer
 from .steps import EpisodeBatch, TrainState, dropout_seeds
@@ -245,23 +246,32 @@ def make_mfm_train_step(cfg: Config, dp: Optional[DataParallel] = None
     world = replicas(dp) if dp is not None else 1
 
     def train_step(state: TrainState, batch: EpisodeBatch) -> Dict:
+        with span("step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: EpisodeBatch) -> Dict:
         if dp is not None:
             check_sync_batch_norm(state.model, allowed=())
         state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         logits = state.model(batch.support_clips, batch.support_labels,
                              batch.query_clips)["logits"]
-        total = (sum_ce(logits, batch.query_labels) / tpb).sum()
-        total.backward()
-        acc = per_episode_accuracy(logits.detach(), batch.query_labels)
-        # each replica's accuracy weighs as its share of the batch
-        metrics = {"task_loss": total.detach(), "accuracy": acc.mean() / world}
+        with span("loss"):
+            total = (sum_ce(logits, batch.query_labels) / tpb).sum()
+        with span("backward"):
+            total.backward()
+        with span("loss"):
+            acc = per_episode_accuracy(logits.detach(), batch.query_labels)
+            # each replica's accuracy weighs as its share of the batch
+            metrics = {"task_loss": total.detach(), "accuracy": acc.mean() / world}
         if dp is not None:
             sync_replicated_grads_(state.model, dp.axis)
             all_reduce_grads(state.model, dp)
             metrics = reduce_metrics(metrics, dp)
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         state.episodes_seen += batch.support_labels.shape[0] * world
         return metrics
